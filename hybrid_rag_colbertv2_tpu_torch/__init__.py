@@ -1,0 +1,22 @@
+"""hybrid_rag_colbertv2_tpu_torch — the PyTorch / CUDA port.
+
+A second package beside ``hybrid_rag_colbertv2_tpu`` (the JAX reference,
+left as it is). It serves the same hybrid cascade — BM25 top-k + ColBERT
+MaxSim top-k -> weighted RRF -> exact rerank -> final top-k — on an NVIDIA
+H100, with the TPU's Pallas kernels rewritten as CUDA C++ kernels for
+Hopper (``csrc/``, built at first use by ``ops/_build.py``).
+
+Each module mirrors the JAX module of the same path and name, and reads
+and writes the same on-disk formats, so an index built by either package
+serves from the other. The package imports torch and numpy, never JAX and
+nothing of the JAX package (it keeps its own copies of the JAX-free
+modules it needs).
+
+Slice 1 (this layout): the flat int8 index, both dense routes
+(``dense_prefilter`` > 0 pruned, 0 full scan through the CUDA int8 MaxSim
+kernel). See ROADMAP.md for the rest.
+"""
+
+__version__ = "0.1.0"
+
+from .config import RAGConfig, MeshConfig  # noqa: F401
