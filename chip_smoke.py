@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py                 # everything; exits 0 on success
-    python3 chip_smoke.py --kernel-only   # build + kernel checks, no result
+    python3 chip_smoke.py         # exits 0 on success; needs one card
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
 JAX: builds every CUDA kernel from ``csrc/``, holds each kernel against
@@ -13,15 +12,17 @@ int8 index (the size of the JAX package's bench.py headline) with the
 routes: ``dense_prefilter=1024`` (pruned) and ``0`` (full scan through the
 CUDA int8 MaxSim kernel). Any failed check raises and exits non-zero.
 
-Stdout ends with the card's ``nvidia-smi`` name and power limit, one JSON
-line per kernel summary, and the result line
+It also prints the p50 and p90 latency of each route, each kernel's time
+beside its bound and its plain version's time, and (last, so tracing
+does not touch the timings) each route's device time by kernel from
+torch.profiler. Stdout ends with the ``{"kernels": [...]}`` summary line,
+the card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import re
 import statistics
@@ -179,11 +180,6 @@ def build_lexical():
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--kernel-only", action="store_true",
-                    help="stop after the kernel build and checks")
-    args = ap.parse_args()
-
     import numpy as np
     import torch
     if not torch.cuda.is_available():
@@ -217,8 +213,6 @@ def main() -> int:
 
     # -- phase 2: kernel vs plain version at small shapes ----------------
     phase_kernel_small(device)
-    if args.kernel_only:
-        return 0
 
     # -- phase 3: the main path at full size -----------------------------
     from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
@@ -321,17 +315,20 @@ def main() -> int:
     log(f"small index, card vs CPU plain versions: final ids equal="
         f"{small_ok}")
 
-    # -- phase 4: numbers ------------------------------------------------
-    lat = {}
-    for p, r in routes.items():
-        times = []
-        for i in range(20):
+    # -- phase 4: numbers (tracing off; the profile comes last) ----------
+    times = {p: [] for p in routes}
+    for i in range(100):                       # routes interleaved
+        for p, r in routes.items():
             t0 = time.perf_counter()
             r.retrieve_batch(batches[i % len(batches)])
-            times.append((time.perf_counter() - t0) * 1e3)
-        lat[p] = statistics.median(times)
-        log(f"retrieve_batch p50 dense_prefilter={p}: {lat[p]:.3f} ms "
-            f"(batch {BATCH}, {N_DOCS} chunks, host clock, 20 calls)")
+            times[p].append((time.perf_counter() - t0) * 1e3)
+    lat = {}
+    for p, ts in times.items():
+        q = statistics.quantiles(ts, n=10)
+        lat[p] = {"p50": statistics.median(ts), "p90": q[-1]}
+        log(f"retrieve_batch dense_prefilter={p}: p50 {lat[p]['p50']:.3f} "
+            f"ms, p90 {lat[p]['p90']:.3f} ms (batch {BATCH}, {N_DOCS} "
+            f"chunks, host clock, {len(ts)} calls)")
     full = ms.maxsim_scores_int8(q_emb, emb, scales, lengths,
                                  doc_len=DOC_LEN)
     torch.cuda.synchronize()
@@ -358,7 +355,9 @@ def main() -> int:
         f"{max(t_ops, t_bytes):.3f} ms ({flops / 1e12:.3f} TFLOP, "
         f"{nbytes / 1e9:.3f} GB), bf16 matmul of the product alone "
         f"{mm_ms:.3f} ms")
-    print(json.dumps({"latency_p50_ms": {str(p): v for p, v in lat.items()},
+    for p, r in routes.items():
+        profile_route(p, r, batches)
+    print(json.dumps({"retrieve_batch_ms": {str(p): v for p, v in lat.items()},
                       "card": card}))
     print(json.dumps({"kernels": [{
         "name": "maxsim_int8", "route": "cuda",
@@ -373,6 +372,32 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def profile_route(prefilter, retriever, batches, calls: int = 5) -> None:
+    """Device time per retrieve_batch by kernel name, and the device's
+    busy share of the wall time (torch.profiler, CUDA activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(calls):
+            retriever.retrieve_batch(batches[i % len(batches)])
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    # device-side entries only (kernels, copies): an operator's entry
+    # repeats the device time of the kernels it launched
+    rows = [(e.self_device_time_total / 1e3 / calls, e.count // calls, e.key)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profile dense_prefilter={prefilter}: wall {wall_ms:.3f} ms/call, "
+        f"device {busy:.3f} ms/call (busy share {busy / wall_ms:.1%}), "
+        f"{sum(r[1] for r in rows)} device ops/call")
+    for ms_, n, key in rows[:12]:
+        log(f"  {ms_:8.3f} ms  x{n:<4d} {key[:90]}")
 
 
 def check_small_cascade(device) -> bool:

@@ -312,11 +312,6 @@ class ColBERTEncoder:
         self.model.to(self.device).eval()
 
     # -- public API -------------------------------------------------------
-    def query_ids(self, texts: Sequence[str]) -> np.ndarray:
-        """(B, Lq) int32 [MASK]-augmented query token ids."""
-        lq = self.cfg.query_max_tokens
-        return np.stack([self.tokenizer.encode_query(t, lq) for t in texts])
-
     @torch.inference_mode()
     def encode_query_ids(self, ids: torch.Tensor) -> torch.Tensor:
         """(B, Lq) token ids on the device -> (B, Lq, D); every position
@@ -325,7 +320,9 @@ class ColBERTEncoder:
 
     def encode_queries(self, texts: Sequence[str]) -> torch.Tensor:
         """-> (B, Lq, D); every row L2-normalized."""
-        ids = torch.as_tensor(self.query_ids(texts), device=self.device)
+        lq = self.cfg.query_max_tokens
+        ids = np.stack([self.tokenizer.encode_query(t, lq) for t in texts])
+        ids = torch.as_tensor(ids, device=self.device)
         return self.encode_query_ids(ids)
 
     @torch.inference_mode()

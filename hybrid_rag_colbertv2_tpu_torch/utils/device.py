@@ -8,7 +8,7 @@ Tests and CPU tools pass ``device="cpu"``.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -37,11 +37,3 @@ def set_fp32_matmul_exact() -> None:
     three decimal digits, which is enough to reorder close candidates."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-
-
-def as_device_array(x, device: Optional[torch.device], dtype=None
-                    ) -> torch.Tensor:
-    """numpy array or tensor -> tensor on ``device`` (one transfer)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(x, dtype=dtype, device=device)
