@@ -199,17 +199,15 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # -- phase 1: build every kernel from csrc/, one nvcc per source ----
+    # -- phase 1: build the kernel from csrc/ ----------------------------
     t0 = time.perf_counter()
-    libs = _build.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f}s total; " + ", ".join(
-        f"{k} {_build.build_seconds.get(k, 0.0):.1f}s" for k in libs))
-    for k, path in libs.items():
-        ptxas = path.with_suffix(".log").read_text()
-        regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
-        spills = re.findall(r"([1-9]\d*) bytes spill", ptxas)
-        log(f"ptxas {k}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-            f"registers, spills: {spills or 'none'}")
+    lib = _build.build("maxsim_int8")
+    log(f"build: maxsim_int8 {time.perf_counter() - t0:.1f}s")
+    ptxas = lib.with_suffix(".log").read_text()
+    regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
+    spills = re.findall(r"([1-9]\d*) bytes spill", ptxas)
+    log(f"ptxas maxsim_int8: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+        f"registers, spills: {spills or 'none'}")
 
     # -- phase 2: kernel vs plain version at small shapes ----------------
     phase_kernel_small(device)
@@ -311,9 +309,9 @@ def main() -> int:
     log(f"scan route dense top-100 vs plain: ids_equal={ids_equal}")
 
     # small-input reference: the same cascade on the CPU's plain versions
-    small_ok = check_small_cascade(device)
-    log(f"small index, card vs CPU plain versions: final ids equal="
-        f"{small_ok}")
+    swaps = check_small_cascade(device)
+    log(f"small index, card vs CPU plain versions: final ids agree "
+        f"({swaps} slots swapped between tied scores)")
 
     # -- phase 4: numbers (tracing off; the profile comes last) ----------
     times = {p: [] for p in routes}
@@ -345,16 +343,20 @@ def main() -> int:
     q_bf = q_emb.reshape(-1, DIM).to(torch.bfloat16).T.contiguous()
     mm_ms = cuda_ms(lambda: torch.matmul(emb_bf, q_bf), 10)
     del emb_bf
-    flops = 2.0 * BATCH * LQ * n_pad * DOC_LEN * DIM
-    nbytes = (emb.numel() + scales.numel() * 4 + q_emb.numel() * 4
+    # the work this run's data needs: products and int8 reads only for
+    # rows with a nonzero scale (the rest are masked to -1e30); every
+    # scale, the query and the output once
+    valid_rows = int((scales > 0).sum())
+    flops = 2.0 * BATCH * LQ * DIM * valid_rows
+    nbytes = (valid_rows * DIM + scales.numel() * 4 + q_emb.numel() * 4
               + BATCH * n_pad * 4)
     peak_flops, peak_bw = peaks_for(name)
     t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
     log(f"maxsim_int8 at B={BATCH} Lq={LQ} N={n_pad} L={DOC_LEN} D={DIM}: "
         f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
         f"{max(t_ops, t_bytes):.3f} ms ({flops / 1e12:.3f} TFLOP, "
-        f"{nbytes / 1e9:.3f} GB), bf16 matmul of the product alone "
-        f"{mm_ms:.3f} ms")
+        f"{nbytes / 1e9:.3f} GB; {valid_rows} of {scales.numel()} rows "
+        f"valid), bf16 matmul of the product alone {mm_ms:.3f} ms")
     for p, r in routes.items():
         profile_route(p, r, batches)
     print(json.dumps({"retrieve_batch_ms": {str(p): v for p, v in lat.items()},
@@ -400,9 +402,12 @@ def profile_route(prefilter, retriever, batches, calls: int = 5) -> None:
         log(f"  {ms_:8.3f} ms  x{n:<4d} {key[:90]}")
 
 
-def check_small_cascade(device) -> bool:
+def check_small_cascade(device) -> int:
     """A 600-doc index served on the card (kernel) and on the CPU (plain
-    versions) must give the same final ids on both routes."""
+    versions) must give the same final scores and ids on both routes.
+    Its closest two final scores are ~2e-4 apart, inside the tolerance,
+    so two ids may swap, but only where their CPU scores tie within the
+    tolerance. Returns the number of swapped slots."""
     import numpy as np
     import torch
     from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
@@ -435,14 +440,24 @@ def check_small_cascade(device) -> bool:
                                           final_fusion="rerank"),
                                 mgr, enc, device=dev)
             out[(dev.type, p)] = r.retrieve_batch(queries)
+    rtol, atol = 1e-4, 1e-3
+    swaps = 0
     for p in (1024, 0):
         gi, gs = out[("cuda", p)]
         ci, cs = out[("cpu", p)]
-        if not np.allclose(gs, cs, rtol=1e-4, atol=1e-3):
+        if not np.allclose(gs, cs, rtol=rtol, atol=atol):
             raise AssertionError(f"small cascade scores differ, route {p}")
-        if not np.array_equal(gi, ci):
-            return False
-    return True
+        for row, j in np.argwhere(gi != ci):
+            # the card's doc in this slot, scored on the CPU: its slot
+            # there, or below the CPU's last slot when it fell out
+            hit = np.flatnonzero(ci[row] == gi[row, j])
+            cpu_score = cs[row, hit[0]] if hit.size else cs[row, -1]
+            if not np.isclose(cpu_score, cs[row, j], rtol=rtol, atol=atol):
+                raise AssertionError(
+                    f"small cascade ids differ beyond ties, route {p}: "
+                    f"{gi[row]} vs {ci[row]}")
+            swaps += 1
+    return swaps
 
 
 if __name__ == "__main__":

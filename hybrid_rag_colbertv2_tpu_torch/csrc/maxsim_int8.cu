@@ -11,9 +11,11 @@
 // products and sums in fp32. Zero-length docs score -1e30 * Lq.
 //
 // Bound at the main path's shape (B=8, Lq=32, N_pad=100,096, L=128, D=128):
-// 2*B*Lq*N*L*D = 0.84 TFLOP of bf16 products, 0.85 ms at the H100 SXM's
-// 989 TFLOP/s; the int8 rows plus fp32 scales are 1.69 GB, 0.51 ms at
-// 3.35 TB/s. At B*Lq = 256 columns the scan is compute-bound (~0.85 ms),
+// over every padded row, 2*B*Lq*N*L*D = 0.84 TFLOP of bf16 products, 0.85 ms
+// at the H100 SXM's 989 TFLOP/s; the int8 rows plus fp32 scales are 1.69 GB,
+// 0.51 ms at 3.35 TB/s. Only rows with a nonzero scale need products: with
+// the main path's doc lengths (64..128, mean 96) that is ~3/4 of the rows,
+// ~0.63 TFLOP, ~0.64 ms. At B*Lq = 256 columns the scan is compute-bound,
 // so the design spends its effort on keeping the tensor cores fed:
 //
 //  * A block owns a tile of up to 256 query-token columns (whole queries)
@@ -27,10 +29,11 @@
 //    buffered, rows padded by 16 bytes so ldmatrix reads hit distinct
 //    banks), not once per warp. One barrier per chunk.
 //  * Warps read A fragments with ldmatrix and multiply with mma.sync
-//    m16n8k16 bf16 -> fp32. The per-row scale and mask are applied to the
-//    fp32 accumulators and folded into a running per-column max in
-//    registers, so the (rows x columns) similarity block never leaves
-//    registers.
+//    m16n8k16 bf16 -> fp32, skipping a 16-row tile whose rows are all
+//    masked (a short doc's padding). The per-row scale and mask are
+//    applied to the fp32 accumulators and folded into a running
+//    per-column max in registers, so the (rows x columns) similarity
+//    block never leaves registers.
 //  * After a doc's last chunk, warp shuffles finish the max over rows,
 //    and one thread per query sums its Lq column maxima in ascending
 //    column order (deferred one chunk, double-buffered, to share the next
@@ -165,7 +168,7 @@ maxsim_int8_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
 
   float cmax[kNTiles][2];
 #pragma unroll
-  for (int nt = 0; nt < kNTiles; ++nt) cmax[nt][0] = cmax[nt][1] = -INFINITY;
+  for (int nt = 0; nt < kNTiles; ++nt) cmax[nt][0] = cmax[nt][1] = kNegInf;
   int pend_doc = -1;  // doc whose column maxima wait in s_colmax to be summed
   int pend_buf = 0;
 
@@ -212,6 +215,9 @@ maxsim_int8_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
       const float* sc = s_scale + buf * kChunkRows;
 #pragma unroll
       for (int mt = 0; mt < kMTiles; ++mt) {
+        // all 16 rows masked: they would only fold -1e30 into cmax, which
+        // starts there, so the tile is skipped (warp-uniform branch)
+        if (!__any_sync(0xffffffffu, sc[mt * 16 + (lane & 15)] > 0.f)) continue;
         float acc[kNTiles][4];
 #pragma unroll
         for (int nt = 0; nt < kNTiles; ++nt)
@@ -254,7 +260,7 @@ maxsim_int8_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
           m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 16));
           if (g == 0)
             s_colmax[pend_buf * kTileCols + warp * kColsPerWarp + nt * 8 + 2 * t + j] = m;
-          cmax[nt][j] = -INFINITY;
+          cmax[nt][j] = kNegInf;
         }
       }
       pend_doc = doc;

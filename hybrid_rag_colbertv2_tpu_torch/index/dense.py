@@ -36,7 +36,6 @@ _UNPORTED_SEARCH = {
     "int8-doc": "maxsim_scores_int8_doc (_maxsim_int8_doc_kernel)",
     "int4-doc": "maxsim_scores_int4_doc (_maxsim_int4_group_kernel)",
 }
-_TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _NP_NAMES = {torch.int8: "int8", torch.bfloat16: "bfloat16",
              torch.float32: "float32"}
 
@@ -76,11 +75,13 @@ class DenseTokenIndex:
         lengths: torch.Tensor,      # (N,) true token counts
         *,
         doc_len: int,
-        dtype: str = "bfloat16",
+        dtype: str = "int8",
         docs_pad_multiple: int = 128,
     ) -> "DenseTokenIndex":
-        """Lay encoder output into the padded index, on its device."""
-        if dtype not in ("int8", "bfloat16", "float32"):
+        """Lay encoder output into the padded int8 index, on its device.
+        Other layouts load and save but are built with their kernel's
+        slice."""
+        if dtype != "int8":
             raise NotImplementedError(
                 f"building the {dtype!r} layout comes with the port of "
                 f"{_UNPORTED_SEARCH[dtype]} (ROADMAP.md)")
@@ -102,13 +103,8 @@ class DenseTokenIndex:
             token_embs = torch.nn.functional.pad(
                 token_embs, (0, 0, 0, 0, 0, n_pad - n))
             lengths = torch.nn.functional.pad(lengths, (0, n_pad - n))
-        scales = None
-        if dtype == "int8":
-            flat, scales = quantize_int8_rows(
-                token_embs.reshape(n_pad * doc_len, d))
-        else:
-            flat = token_embs.reshape(n_pad * doc_len, d).to(
-                _TORCH_DTYPES[dtype])
+        flat, scales = quantize_int8_rows(
+            token_embs.reshape(n_pad * doc_len, d))
         pooled = pooled_doc_embeddings(flat, scales, lengths, doc_len=doc_len)
         return cls(emb_flat=flat.contiguous(), doc_lengths=lengths,
                    n_docs=n, doc_len=doc_len, dim=d, scales=scales,

@@ -17,22 +17,17 @@ import os
 import shutil
 import subprocess
 import threading
-import time
-from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-# every kernel of the port: name -> source under csrc/
-KERNELS: Tuple[str, ...] = ("maxsim_int8",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
-build_seconds: Dict[str, float] = {}
 
 
 def _nvcc() -> str:
@@ -61,9 +56,7 @@ def build(name: str) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds[name] = time.perf_counter() - t0
     # ptxas -v (registers, shared memory, spills) is kept beside the library
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -71,13 +64,6 @@ def build(name: str) -> Path:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)
     return out
-
-
-def build_all() -> Dict[str, Path]:
-    """Build every kernel of the port, one nvcc per source, in parallel."""
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
-        futures = {n: pool.submit(build, n) for n in KERNELS}
-        return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -70,21 +70,35 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
 
 
 def test_unported_layouts_raise(tmp_path):
+    import jax.numpy as jnp
+    import numpy as np
+    from hybrid_rag_colbertv2_tpu.index.dense import (
+        DenseTokenIndex as JaxDenseTokenIndex)
     from hybrid_rag_colbertv2_tpu_torch.config import MeshConfig, RAGConfig
     from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
     from hybrid_rag_colbertv2_tpu_torch.index.lexical import LexicalIndex
     from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
 
-    embs = torch.randn(3, 64, 32, generator=torch.Generator().manual_seed(0))
-    lengths = torch.tensor([5, 64, 0])
-    bf = DenseTokenIndex.build(embs, lengths, doc_len=64, dtype="bfloat16")
+    embs = np.random.default_rng(0).standard_normal((3, 64, 32), np.float32)
+    lengths = np.array([5, 64, 0], np.int32)
+    # a bf16 directory saved by the JAX package loads, bits intact, and
+    # searching it names the kernel that has not been ported
+    bf = JaxDenseTokenIndex.build(jnp.asarray(embs), jnp.asarray(lengths),
+                                  doc_len=64, dtype="bfloat16")
     bf.save(tmp_path / "bf")
     loaded = DenseTokenIndex.load(tmp_path / "bf", device="cpu")
-    assert torch.equal(loaded.emb_flat, bf.emb_flat)
+    assert loaded.quant == "bfloat16"
+    np.testing.assert_array_equal(
+        loaded.emb_flat.view(torch.int16).numpy().view(np.uint16),
+        np.asarray(bf.emb_flat).view(np.uint16))
     with pytest.raises(NotImplementedError, match="_maxsim_kernel"):
         loaded.search_scores(torch.randn(1, 32, 32))
-    with pytest.raises(NotImplementedError, match="int4"):
-        DenseTokenIndex.build(embs, lengths, doc_len=64, dtype="int4-doc")
+    for dtype, kernel in (("bfloat16", "_maxsim_kernel"),
+                          ("int4-doc", "int4")):
+        with pytest.raises(NotImplementedError, match=kernel):
+            DenseTokenIndex.build(torch.from_numpy(embs),
+                                  torch.from_numpy(lengths), doc_len=64,
+                                  dtype=dtype)
     (tmp_path / "bk").mkdir()
     (tmp_path / "bk" / "meta.json").write_text('{"n_buckets": 2}')
     cfg = RAGConfig(bm25_index_path=str(tmp_path / "bm25"),
