@@ -1,22 +1,33 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py         # exits 0 on success; needs one card
+    python3 chip_smoke.py                 # exits 0 on success; one card
+    python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
-JAX: builds every CUDA kernel from ``csrc/``, holds each kernel against
-its plain PyTorch version on the card, then serves batches of 8 queries
-through ``HybridRetriever.retrieve_batch`` over a 100,000-chunk x 128-token
-int8 index (the size of the JAX package's bench.py headline) with the
-``small`` encoder preset (random weights from a seed), on both dense
-routes: ``dense_prefilter=1024`` (pruned) and ``0`` (full scan through the
-CUDA int8 MaxSim kernel). Any failed check raises and exits non-zero.
+JAX: builds every CUDA kernel from ``csrc/`` (one nvcc per source, all at
+once), holds each kernel against its plain PyTorch version on the card,
+then serves batches of 8 queries through ``HybridRetriever.retrieve_batch``
+with the ``small`` encoder preset (random weights from a seed), on both
+dense routes of every flat index layout:
 
-It also prints the p50 and p90 latency of each route, each kernel's time
-beside its bound and its plain version's time, and (last, so tracing
-does not touch the timings) each route's device time by kernel from
-torch.profiler. Stdout ends with the ``{"kernels": [...]}`` summary line,
-the card's ``nvidia-smi`` name and power limit, and the result line
+  * ``int8``, ``int8-doc``, ``bfloat16``, ``float32``: one 100,000-chunk x
+    128-token x 128-dim corpus (the size of the JAX package's bench.py
+    headline), laid out four ways; routes ``dense_prefilter=1024`` (pruned)
+    and ``0`` (full scan through the layout's CUDA MaxSim kernel);
+  * ``int4-doc``: 1,000,000 chunks x 64 tokens x 128 dims (the JAX
+    package's one-chip capacity configuration, bench.py ``run_1m``);
+    routes ``2048`` and ``0``.
+
+Token rows are generated on the card in doc blocks and laid out by the
+port's own quantizers, so each layout's padding contract holds. Any failed
+check raises and exits non-zero.
+
+It also prints the p50 and p90 latency of each layout and route, each
+kernel's time beside its bound and its plain version's time, and (last, so
+tracing does not touch the timings) each route's device time by kernel
+from torch.profiler. Stdout ends with the ``{"kernels": [...]}`` summary
+line, the card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
@@ -33,15 +44,40 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 PORT = "hybrid_rag_colbertv2_tpu_torch"
+JAX_MAXSIM = "hybrid_rag_colbertv2_tpu/ops/maxsim.py"
 
 N_DOCS, DOC_LEN, DIM, BATCH, LQ = 100_000, 128, 128, 8, 32
+N_DOCS_INT4, DOC_LEN_INT4 = 1_000_000, 64
 N_TOPICS, TOPIC_NOISE = 512, 0.35
 PLANTED_DOC = 4242
+N_TIMED_CALLS = 40
 # kernel vs plain version: fp32 sums in other orders (products are exact)
 RTOL, ATOL = 1e-5, 1e-3
-# published dense peaks: (bf16 FLOP/s, HBM bytes/s) — NVIDIA data sheets
-PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
-         "H200": (989e12, 4.8e12), "H100": (989e12, 3.35e12)}
+# published dense peaks: (bf16 tensor FLOP/s, HBM bytes/s, fp32 FLOP/s on
+# the CUDA cores) — NVIDIA data sheets
+PEAKS = {"H100 PCIe": (756e12, 2.0e12, 51e12),
+         "H100 NVL": (835e12, 3.9e12, 60e12),
+         "H200": (989e12, 4.8e12, 67e12),
+         "H100": (989e12, 3.35e12, 67e12)}
+
+# name -> (index layout, wrapper, plain version, source, Pallas kernel line)
+KERNELS = {
+    "maxsim_int8": ("int8", "maxsim_scores_int8",
+                    "maxsim_scores_int8_reference", "maxsim_int8.cu", 231),
+    "maxsim_int8_doc": ("int8-doc", "maxsim_scores_int8_doc",
+                        "maxsim_scores_int8_doc_reference",
+                        "maxsim_int8_doc.cu", 262),
+    "maxsim_int4_group": ("int4-doc", "maxsim_scores_int4_doc",
+                          "maxsim_scores_int4_doc_reference",
+                          "maxsim_int4_group.cu", 294),
+    "maxsim_bf16": ("bfloat16", "maxsim_scores", "maxsim_scores_reference",
+                    "maxsim.cu", 120),
+    "maxsim_f32": ("float32", "maxsim_scores", "maxsim_scores_reference",
+                   "maxsim.cu", 120),
+}
+LAYOUT_KERNEL = {v[0]: k for k, v in KERNELS.items()}
+WRAPPERS = ("maxsim_scores", "maxsim_scores_int8", "maxsim_scores_int8_doc",
+            "maxsim_scores_int4_doc")
 
 
 def log(msg: str) -> None:
@@ -101,15 +137,31 @@ def compare(kernel, plain, k: int):
     return err, same
 
 
-def random_index(gen, n, doc_len, dim, device, plants=None,
-                 n_topics=N_TOPICS, n_valid=None, zero_docs=(), block=1024):
+def launch_counts():
+    from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
+    return {w: getattr(ms, w).launches for w in WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
+    for w in WRAPPERS:
+        getattr(ms, w).launches = 0
+
+
+def random_layouts(gen, n, doc_len, dim, device, layouts, plants=None,
+                   n_topics=N_TOPICS, n_valid=None, zero_docs=(),
+                   zero_rows=(), block=1024):
     """Topic-clustered unit-norm token rows (bench.py's generator),
-    lengths in [doc_len/2, doc_len], padding rows zeroed, quantized by the
-    port's quantize_int8_rows, generated on the card in doc blocks.
-    ``plants`` {doc: (rows, D) unit rows} overwrite a doc's first rows;
-    docs from ``n_valid`` on, and ``zero_docs``, have length 0."""
+    lengths in [doc_len/2, doc_len], padding rows zeroed, generated on the
+    card in doc blocks and laid out in each of ``layouts`` by the port's
+    quantizers. ``plants`` {doc: (rows, D) unit rows} overwrite a doc's
+    first rows; docs from ``n_valid`` on, and ``zero_docs``, have length
+    0; ``zero_rows`` (doc, row) are valid rows set to zero.
+    -> (lengths, {layout: (emb_flat, scales, doc_scales)})"""
     import torch
-    from hybrid_rag_colbertv2_tpu_torch.ops.quant import quantize_int8_rows
+    from hybrid_rag_colbertv2_tpu_torch.ops.quant import (
+        int4_group_size, quantize_int4_groups, quantize_int8_docs,
+        quantize_int8_rows)
     n_valid = n if n_valid is None else n_valid
     topics = torch.randn(n_topics, dim, generator=gen, device=device)
     topics = topics / topics.norm(dim=-1, keepdim=True)
@@ -120,8 +172,21 @@ def random_index(gen, n, doc_len, dim, device, plants=None,
     lengths[list(zero_docs)] = 0
     for doc, rows in (plants or {}).items():
         lengths[doc] = max(int(lengths[doc]), rows.shape[0])
-    emb = torch.empty((n * doc_len, dim), dtype=torch.int8, device=device)
-    scales = torch.empty((n * doc_len,), dtype=torch.float32, device=device)
+    out = {}
+    for layout in layouts:
+        rows = n * doc_len // 2 if layout == "int4-doc" else n * doc_len
+        dtype = {"bfloat16": torch.bfloat16,
+                 "float32": torch.float32}.get(layout, torch.int8)
+        emb = torch.empty((rows, dim), dtype=dtype, device=device)
+        scales = (torch.empty((n * doc_len,), dtype=torch.float32,
+                              device=device) if layout == "int8" else None)
+        doc_scales = None
+        if layout == "int8-doc":
+            doc_scales = torch.empty((n,), dtype=torch.float32, device=device)
+        elif layout == "int4-doc":
+            doc_scales = torch.empty((doc_len // int4_group_size(doc_len), n),
+                                     dtype=torch.float32, device=device)
+        out[layout] = (emb, scales, doc_scales)
     tok = torch.arange(doc_len, device=device)
     for s in range(0, n, block):
         e = min(n, s + block)
@@ -131,56 +196,282 @@ def random_index(gen, n, doc_len, dim, device, plants=None,
         for doc, rows in (plants or {}).items():
             if s <= doc < e:
                 x[doc - s, :rows.shape[0]] = rows
-        x = x * (tok[None, :] < lengths[s:e, None])[..., None]
-        q8, sc = quantize_int8_rows(x.reshape(-1, dim))
-        emb[s * doc_len:e * doc_len] = q8
-        scales[s * doc_len:e * doc_len] = sc
-    return emb, scales, lengths
+        for doc, row in zero_rows:
+            if s <= doc < e:
+                x[doc - s, row] = 0.0
+        ln = lengths[s:e]
+        x = x * (tok[None, :] < ln[:, None])[..., None]
+        for layout, (emb, scales, doc_scales) in out.items():
+            if layout == "int8":
+                q8, sc = quantize_int8_rows(x.reshape(-1, dim))
+                emb[s * doc_len:e * doc_len] = q8
+                scales[s * doc_len:e * doc_len] = sc
+            elif layout == "int8-doc":
+                q8, sc = quantize_int8_docs(x, ln)
+                emb[s * doc_len:e * doc_len] = q8
+                doc_scales[s:e] = sc
+            elif layout == "int4-doc":
+                q4, gs = quantize_int4_groups(x, ln)
+                emb[s * doc_len // 2:e * doc_len // 2] = q4
+                doc_scales[:, s:e] = gs
+            else:
+                emb[s * doc_len:e * doc_len] = x.reshape(-1, dim).to(
+                    emb.dtype)
+    return lengths, out
+
+
+def scan(kernel: str, which: str, q, emb, scales, doc_scales, lengths,
+         doc_len: int):
+    """Run ``kernel``'s wrapper (``which="kernel"``) or its plain version
+    (``"plain"``) over one index."""
+    from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
+    _, wrapper, plain, _, _ = KERNELS[kernel]
+    fn = getattr(ms, wrapper if which == "kernel" else plain)
+    if kernel == "maxsim_int8":
+        return fn(q, emb, scales, lengths, doc_len=doc_len)
+    if doc_scales is not None:
+        return fn(q, emb, doc_scales, lengths, doc_len=doc_len)
+    return fn(q, emb, lengths, doc_len=doc_len)
 
 
 def phase_kernel_small(device):
-    """Kernel vs plain version at small shapes: ragged N, zero-length
-    docs, a zeroed valid row, B in {1, 8, 64}, L in {64, 128, 256}."""
+    """Every kernel vs its plain version at small shapes: ragged N,
+    zero-length docs, a zeroed valid row, B in {1, 8, 64}, L in {64, 128,
+    256}."""
     import torch
-    from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
     gen = torch.Generator(device=device).manual_seed(1)
     cases = [(1, 64, 1037, 128), (8, 128, 3001, 128), (64, 256, 515, 128),
              (9, 128, 700, 128), (3, 64, 77, 32)]
+    layouts = [KERNELS[k][0] for k in KERNELS]
     for b, doc_len, n, dim in cases:
-        emb, scales, lengths = random_index(
-            gen, n, doc_len, dim, device, n_topics=16,
-            zero_docs=(0, n // 2), block=256)
-        scales[5 * doc_len + 1] = 0.0                 # a zeroed valid row
-        emb[5 * doc_len + 1] = 0
+        zero = (0, n // 2)
+        lengths, stores = random_layouts(
+            gen, n, doc_len, dim, device, layouts, n_topics=16,
+            zero_docs=zero, zero_rows=((5, 1),), block=256)
         q = torch.randn(b, LQ, dim, generator=gen, device=device)
         q = q / q.norm(dim=-1, keepdim=True)
         q[:, LQ - 3:] = 0.0                           # padded query rows
-        out = ms.maxsim_scores_int8(q, emb, scales, lengths, doc_len=doc_len)
-        torch.cuda.synchronize()
-        ref = ms.maxsim_scores_int8_reference(q, emb, scales, lengths,
-                                              doc_len=doc_len)
-        torch.cuda.synchronize()
-        err, same = compare(out, ref, min(100, n))
-        if not (out[:, [0, n // 2]] < -1e31).all():
-            raise AssertionError("zero-length docs must score -1e30 * Lq")
-        log(f"kernel maxsim_int8 B={b} L={doc_len} N={n} D={dim}: "
-            f"max_abs_err={err:.3e} top100_ids_equal={same}")
+        for kernel, (layout, *_) in KERNELS.items():
+            emb, scales, doc_scales = stores[layout]
+            out = scan(kernel, "kernel", q, emb, scales, doc_scales, lengths,
+                       doc_len)
+            torch.cuda.synchronize()
+            ref = scan(kernel, "plain", q, emb, scales, doc_scales, lengths,
+                       doc_len)
+            torch.cuda.synchronize()
+            err, same = compare(out, ref, min(100, n))
+            zl = out[:, list(zero)]
+            if doc_scales is not None:
+                if not (zl == 0).all():
+                    raise AssertionError(
+                        f"{kernel}: zero-length docs must score exactly 0")
+            elif not (zl < -1e31).all():
+                raise AssertionError(
+                    f"{kernel}: zero-length docs must score -1e30 * Lq")
+            log(f"kernel {kernel} B={b} L={doc_len} N={n} D={dim}: "
+                f"max_abs_err={err:.3e} top100_ids_equal={same}")
 
 
-def build_lexical():
+def build_lexical(n_docs: int, seed: int):
     import numpy as np
     from hybrid_rag_colbertv2_tpu_torch.index.lexical import LexicalIndex
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
     vocab = np.array([f"term{i}" for i in range(5_000)])
     corpus = [" ".join(r) for r in vocab[rng.integers(0, 5_000,
-                                                      (N_DOCS, 12))]]
+                                                      (n_docs, 12))]]
     lex = LexicalIndex.build(corpus, postings_cap=512)
     queries = [" ".join(rng.choice(vocab, 6)) for _ in range(4 * BATCH)]
     return lex, corpus, queries
 
 
-def main() -> int:
+def make_paths(device, encoder, gen):
+    """The five layouts' indexes, managers and retrievers.
+    -> {layout: dict(dense, routes {prefilter: retriever}, batches, lex)}"""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
+    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    from hybrid_rag_colbertv2_tpu_torch.ops.prefilter import (
+        pooled_doc_embeddings)
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        HybridRetriever)
+    specs = [(("int8", "int8-doc", "bfloat16", "float32"), N_DOCS, DOC_LEN,
+              1024, 0), (("int4-doc",), N_DOCS_INT4, DOC_LEN_INT4, 2048, 1)]
+    paths = {}
+    for layouts, n_docs, doc_len, prefilter, seed in specs:
+        t0 = time.perf_counter()
+        lex, corpus, queries = build_lexical(n_docs, seed)
+        log(f"lexical: {n_docs} docs, max_postings={lex.max_postings}, "
+            f"{time.perf_counter() - t0:.1f}s")
+        plant = encoder.encode_queries([queries[0]])[0].clone()  # (Lq, D)
+        n_pad = ((n_docs + 127) // 128) * 128
+        t0 = time.perf_counter()
+        lengths, stores = random_layouts(
+            gen, n_pad, doc_len, DIM, device, layouts, n_valid=n_docs,
+            plants={PLANTED_DOC: plant})
+        batches = [queries[i:i + BATCH] for i in range(0, 3 * BATCH, BATCH)]
+        for layout in layouts:
+            emb, scales, doc_scales = stores.pop(layout)
+            pooled = pooled_doc_embeddings(
+                emb, scales, lengths, doc_len=doc_len, doc_scales=doc_scales,
+                packed_int4=layout == "int4-doc")
+            dense = DenseTokenIndex(
+                emb_flat=emb, doc_lengths=lengths, n_docs=n_docs,
+                doc_len=doc_len, dim=DIM, scales=scales, pooled=pooled,
+                doc_scales=doc_scales)
+            assert dense.quant == layout, (dense.quant, layout)
+            mgr = IndexManager(RAGConfig(), encoder, device=device)
+            mgr.lexical, mgr.dense, mgr.corpus = lex, dense, corpus
+            routes = {p: HybridRetriever(
+                RAGConfig(dense_prefilter=p, final_fusion="rerank",
+                          bm25_postings_cap=512), mgr, encoder,
+                device=device) for p in (prefilter, 0)}
+            paths[layout] = dict(dense=dense, routes=routes, lex=lex,
+                                 batches=batches)
+        torch.cuda.synchronize()
+        log(f"dense indexes {', '.join(layouts)}: {n_pad} x {doc_len} x "
+            f"{DIM}, "
+            + ", ".join(f"{paths[lay]['dense'].memory_bytes() / 1e9:.2f}"
+                        for lay in layouts)
+            + f" GB on the card, {time.perf_counter() - t0:.1f}s")
+    return paths
+
+
+def run_path(layout, path) -> int:
+    """The counted run of one layout's main path: 3 batches per route,
+    the counts set to 0 just before each route and read just after.
+    -> launches of the layout's kernel on route 0."""
     import numpy as np
+    import torch
+    wrapper = KERNELS[LAYOUT_KERNEL[layout]][1]
+    n_docs = path["dense"].n_docs
+    launches = 0
+    for p, r in path["routes"].items():
+        reset_launch_counts()
+        outs = [r.retrieve_batch(b) for b in path["batches"]]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {w: (len(outs) if p == 0 and w == wrapper else 0)
+                for w in WRAPPERS}
+        if counts != want:
+            raise AssertionError(f"{layout} route {p}: launches {counts}, "
+                                 f"want {want}")
+        if p == 0:
+            launches = counts[wrapper]
+        for ids, scores in outs:
+            if ids.shape != (BATCH, 10) or not (
+                    (ids >= -1) & (ids < n_docs)).all():
+                raise AssertionError(f"bad ids on {layout} route {p}: {ids}")
+            if not np.isfinite(scores[ids >= 0]).all():
+                raise AssertionError(f"non-finite scores on {layout} "
+                                     f"route {p}")
+        rank1 = int(outs[0][0][0, 0])
+        log(f"{layout} dense_prefilter={p}: launches {counts[wrapper]} of "
+            f"{wrapper} over {len(outs)} batches; planted doc {PLANTED_DOC}"
+            f" -> rank-1 id {rank1}")
+        if rank1 != PLANTED_DOC:
+            raise AssertionError("planted query must return its doc first")
+    return launches
+
+
+def check_dense_top100(layout, path, encoder, device):
+    """The scan route's dense top-100 (from the cascade) vs the plain
+    version + top-k over the same index."""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.ops.topk import top_k
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        hybrid_cascade)
+    dense, r0 = path["dense"], path["routes"][0]
+    batch = path["batches"][0]
+    q_emb = encoder.encode_queries(batch)
+    q_terms = torch.as_tensor(
+        np.stack([path["lex"].encode_query(q, 32) for q in batch]),
+        device=device)
+    with torch.inference_mode():
+        _, _, dbg = hybrid_cascade(
+            q_emb, q_terms, r0._lex_dev["indptr"], r0._lex_dev["post_docs"],
+            r0._lex_dev["post_weights"], dense.emb_flat, dense.scales,
+            dense.doc_lengths, None, dense.doc_scales, **r0._statics(10))
+    plain = scan(LAYOUT_KERNEL[layout], "plain", q_emb, dense.emb_flat,
+                 dense.scales, dense.doc_scales, dense.doc_lengths,
+                 dense.doc_len)[:, :dense.n_docs]
+    pv, pi = top_k(plain, 100)
+    kv, ki = dbg["ms_vals"], dbg["ms_ids"].long()
+    if not torch.allclose(kv, pv, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{layout}: dense top-100 values differ")
+    ids_equal = bool(torch.equal(ki, pi))
+    if not ids_equal and not torch.allclose(
+            torch.gather(plain, 1, ki), pv, rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{layout}: dense top-100 ids differ beyond "
+                             "ties")
+    log(f"{layout} scan route dense top-100 vs plain: ids_equal={ids_equal}")
+    return q_emb
+
+
+def kernel_numbers(kernel, path, q_emb, peaks):
+    """Kernel vs plain at the main shape, their times by CUDA events, the
+    bf16 (fp32 for the fp32 kernel) matmul of the product alone where it
+    fits in memory, and the bound from this run's inputs: products only
+    for valid rows (the rest are masked or copies); bytes of what the
+    function must read (the float scan masks by content, so it reads
+    every row) and of its output."""
+    import torch
+    dense = path["dense"]
+    layout = KERNELS[kernel][0]
+    args = (q_emb, dense.emb_flat, dense.scales, dense.doc_scales,
+            dense.doc_lengths, dense.doc_len)
+    full = scan(kernel, "kernel", *args)
+    torch.cuda.synchronize()
+    ref = scan(kernel, "plain", *args)
+    err, same = compare(full, ref, 100)
+    del full, ref
+    k_ms = cuda_ms(lambda: scan(kernel, "kernel", *args), 20)
+    p_ms = cuda_ms(lambda: scan(kernel, "plain", *args), 3, warmup=1)
+    b, lq, d = q_emb.shape
+    n_pad, doc_len = dense.n_pad, dense.doc_len
+    rows = n_pad * doc_len
+    mm_ms = None
+    if rows * b * lq * 4 < 20e9:   # the (rows, B*Lq) fp32 product fits
+        if layout == "float32":
+            a = dense.emb_flat
+            qt = q_emb.reshape(-1, d).T.contiguous()
+        else:
+            a = (dense.emb_flat if layout == "bfloat16"
+                 else dense.emb_flat.to(torch.bfloat16))
+            qt = q_emb.reshape(-1, d).to(torch.bfloat16).T.contiguous()
+        mm_ms = cuda_ms(lambda: torch.matmul(a, qt), 10)
+        del a
+    if layout == "int8":
+        valid_rows = int((dense.scales > 0).sum())
+    else:
+        valid_rows = int(dense.doc_lengths.sum())
+    flops = 2.0 * b * lq * d * valid_rows
+    nbytes = q_emb.numel() * q_emb.element_size() + b * n_pad * 4
+    if layout == "int8":
+        nbytes += valid_rows * d + dense.scales.numel() * 4
+    elif layout == "int8-doc":
+        nbytes += valid_rows * d + n_pad * 4 + n_pad * 4
+    elif layout == "int4-doc":
+        nbytes += valid_rows * d // 2 + dense.doc_scales.numel() * 4 + n_pad * 4
+    else:
+        nbytes += dense.emb_flat.numel() * dense.emb_flat.element_size()
+    peak_ops = peaks[2] if layout == "float32" else peaks[0]
+    t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / peaks[1] * 1e3
+    bound = max(t_ops, t_bytes)
+    log(f"{kernel} at B={b} Lq={lq} N={n_pad} L={doc_len} D={d}: "
+        f"max_abs_err={err:.3e} top100_ids_equal={same}; kernel {k_ms:.3f} "
+        f"ms, plain {p_ms:.3f} ms, bound {bound:.3f} ms "
+        f"({flops / 1e12:.3f} TFLOP at {peak_ops / 1e12:.0f} TFLOP/s, "
+        f"{nbytes / 1e9:.3f} GB; {valid_rows} of {rows} rows valid), "
+        f"matmul of the product alone "
+        f"{'n/a' if mm_ms is None else f'{mm_ms:.3f} ms'}")
+    return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                library_ms=None, matmul_only_ms=mm_ms)
+
+
+def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -197,178 +488,79 @@ def main() -> int:
     device = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
+    peaks = peaks_for(name)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # -- phase 1: build the kernel from csrc/ ----------------------------
+    # -- phase 1: build the kernels from csrc/, one nvcc each, at once ---
     t0 = time.perf_counter()
-    lib = _build.build("maxsim_int8")
-    log(f"build: maxsim_int8 {time.perf_counter() - t0:.1f}s")
-    ptxas = lib.with_suffix(".log").read_text()
-    regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
-    spills = re.findall(r"([1-9]\d*) bytes spill", ptxas)
-    log(f"ptxas maxsim_int8: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-        f"registers, spills: {spills or 'none'}")
+    sources = sorted({KERNELS[k][3][:-3] for k in KERNELS})
+    libs = _build.build_many(sources)
+    log(f"build: {', '.join(sources)} {time.perf_counter() - t0:.1f}s")
+    for src, lib in libs.items():
+        ptxas = lib.with_suffix(".log").read_text()
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
+        spills = re.findall(r"([1-9]\d*) bytes spill", ptxas)
+        log(f"ptxas {src}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
+            f"registers, spills: {spills or 'none'}")
 
-    # -- phase 2: kernel vs plain version at small shapes ----------------
+    # -- phase 2: each kernel vs its plain version at small shapes ------
     phase_kernel_small(device)
+    if "--kernels-only" in sys.argv[1:]:
+        log("kernels-only: stopping after the kernel checks")
+        return 0
 
-    # -- phase 3: the main path at full size -----------------------------
-    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
-    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
-    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    # -- phase 3: the main path of every layout, both routes -------------
     from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
         ColBERTConfig, ColBERTEncoder)
     from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import HashTokenizer
-    from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
-    from hybrid_rag_colbertv2_tpu_torch.ops.prefilter import (
-        pooled_doc_embeddings)
-    from hybrid_rag_colbertv2_tpu_torch.ops.topk import top_k
-    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
-        HybridRetriever, hybrid_cascade)
-
-    t0 = time.perf_counter()
-    lex, corpus, queries = build_lexical()
-    log(f"lexical: {N_DOCS} docs, max_postings={lex.max_postings}, "
-        f"{time.perf_counter() - t0:.1f}s")
-    tok = HashTokenizer(8192)
-    encoder = ColBERTEncoder(ColBERTConfig.small(vocab_size=8192), tok,
-                             seed=0, device=device)
-    planted_q = queries[0]
-    plant_rows = encoder.encode_queries([planted_q])[0].clone()  # (Lq, D)
-
-    t0 = time.perf_counter()
-    n_pad = ((N_DOCS + 127) // 128) * 128
+    encoder = ColBERTEncoder(ColBERTConfig.small(vocab_size=8192),
+                             HashTokenizer(8192), seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
-    emb, scales, lengths = random_index(
-        gen, n_pad, DOC_LEN, DIM, device, n_valid=N_DOCS,
-        plants={PLANTED_DOC: plant_rows})
-    pooled = pooled_doc_embeddings(emb, scales, lengths, doc_len=DOC_LEN)
-    dense = DenseTokenIndex(emb_flat=emb, doc_lengths=lengths,
-                            n_docs=N_DOCS, doc_len=DOC_LEN, dim=DIM,
-                            scales=scales, pooled=pooled)
+    paths = make_paths(device, encoder, gen)
+    for path in paths.values():                 # first-use allocations
+        for r in path["routes"].values():
+            r.retrieve_batch(path["batches"][0])
     torch.cuda.synchronize()
-    log(f"dense index: {n_pad} x {DOC_LEN} x {DIM} int8, "
-        f"{dense.memory_bytes() / 1e9:.2f} GB on the card, "
-        f"{time.perf_counter() - t0:.1f}s")
-    mgr = IndexManager(RAGConfig(), encoder, device=device)
-    mgr.lexical, mgr.dense, mgr.corpus = lex, dense, corpus
-    routes = {p: HybridRetriever(
-        RAGConfig(dense_prefilter=p, final_fusion="rerank",
-                  bm25_postings_cap=512), mgr, encoder, device=device)
-        for p in (1024, 0)}
-    batches = [queries[i:i + BATCH] for i in range(0, 3 * BATCH, BATCH)]
-    for r in routes.values():                 # first-use allocations
-        r.retrieve_batch(batches[0])
-    torch.cuda.synchronize()
-
-    # the counted run of the main path: both routes, 3 batches each
-    ms.maxsim_scores_int8.launches = 0
-    results = {p: [r.retrieve_batch(b) for b in batches]
-               for p, r in routes.items()}
-    torch.cuda.synchronize()
-    launches = ms.maxsim_scores_int8.launches
-    log(f"main path: launches maxsim_int8={launches} over "
-        f"{len(batches)} batches per route")
-    if launches != len(batches):
-        raise AssertionError("dense_prefilter=0 must launch the int8 kernel "
-                             "once per retrieve_batch")
-    for p, outs in results.items():
-        for ids, scores in outs:
-            if ids.shape != (BATCH, 10) or not (
-                    (ids >= -1) & (ids < N_DOCS)).all():
-                raise AssertionError(f"bad ids on route {p}: {ids}")
-            if not np.isfinite(scores[ids >= 0]).all():
-                raise AssertionError(f"non-finite scores on route {p}")
-        planted_rank1 = int(outs[0][0][0, 0])
-        log(f"route dense_prefilter={p}: planted doc {PLANTED_DOC} -> "
-            f"rank-1 id {planted_rank1}")
-        if planted_rank1 != PLANTED_DOC:
-            raise AssertionError("planted query must return its doc first")
-
-    # dense top-100 of the scan route vs the plain version + top-k
-    q_emb = encoder.encode_queries(batches[0])
-    lex_dev = routes[0]._lex_dev
-    q_terms = torch.as_tensor(
-        np.stack([lex.encode_query(q, 32) for q in batches[0]]),
-        device=device)
-    with torch.inference_mode():
-        _, _, dbg = hybrid_cascade(
-            q_emb, q_terms, lex_dev["indptr"], lex_dev["post_docs"],
-            lex_dev["post_weights"], emb, scales, lengths, None, None,
-            **routes[0]._statics(10))
-    plain = ms.maxsim_scores_int8_reference(q_emb, emb, scales, lengths,
-                                            doc_len=DOC_LEN)[:, :N_DOCS]
-    pv, pi = top_k(plain, 100)
-    kv, ki = dbg["ms_vals"], dbg["ms_ids"].long()
-    if not torch.allclose(kv, pv, rtol=RTOL, atol=ATOL):
-        raise AssertionError("dense top-100 values differ from plain")
-    ids_equal = bool(torch.equal(ki, pi))
-    if not ids_equal and not torch.allclose(
-            torch.gather(plain, 1, ki), pv, rtol=RTOL, atol=ATOL):
-        raise AssertionError("dense top-100 ids differ beyond ties")
-    log(f"scan route dense top-100 vs plain: ids_equal={ids_equal}")
+    launches = {LAYOUT_KERNEL[lay]: run_path(lay, path)
+                for lay, path in paths.items()}
+    q_embs = {lay: check_dense_top100(lay, path, encoder, device)
+              for lay, path in paths.items()}
 
     # small-input reference: the same cascade on the CPU's plain versions
-    swaps = check_small_cascade(device)
-    log(f"small index, card vs CPU plain versions: final ids agree "
-        f"({swaps} slots swapped between tied scores)")
+    for layout, n in check_small_cascade(device, list(paths)).items():
+        log(f"small {layout} index, card vs CPU plain versions: final ids "
+            f"agree ({n} slots swapped between tied scores)")
 
     # -- phase 4: numbers (tracing off; the profile comes last) ----------
-    times = {p: [] for p in routes}
-    for i in range(100):                       # routes interleaved
-        for p, r in routes.items():
+    times = {(lay, p): [] for lay, path in paths.items()
+             for p in path["routes"]}
+    for i in range(N_TIMED_CALLS):             # layouts and routes interleaved
+        for (lay, p), ts in times.items():
+            path = paths[lay]
             t0 = time.perf_counter()
-            r.retrieve_batch(batches[i % len(batches)])
-            times[p].append((time.perf_counter() - t0) * 1e3)
+            path["routes"][p].retrieve_batch(
+                path["batches"][i % len(path["batches"])])
+            ts.append((time.perf_counter() - t0) * 1e3)
     lat = {}
-    for p, ts in times.items():
+    for (lay, p), ts in times.items():
         q = statistics.quantiles(ts, n=10)
-        lat[p] = {"p50": statistics.median(ts), "p90": q[-1]}
-        log(f"retrieve_batch dense_prefilter={p}: p50 {lat[p]['p50']:.3f} "
-            f"ms, p90 {lat[p]['p90']:.3f} ms (batch {BATCH}, {N_DOCS} "
-            f"chunks, host clock, {len(ts)} calls)")
-    full = ms.maxsim_scores_int8(q_emb, emb, scales, lengths,
-                                 doc_len=DOC_LEN)
-    torch.cuda.synchronize()
-    ref_full = ms.maxsim_scores_int8_reference(q_emb, emb, scales, lengths,
-                                               doc_len=DOC_LEN)
-    err, same = compare(full, ref_full, 100)
-    log(f"kernel maxsim_int8 main shape: max_abs_err={err:.3e} "
-        f"top100_ids_equal={same}")
-    k_ms = cuda_ms(lambda: ms.maxsim_scores_int8(
-        q_emb, emb, scales, lengths, doc_len=DOC_LEN), 20)
-    p_ms = cuda_ms(lambda: ms.maxsim_scores_int8_reference(
-        q_emb, emb, scales, lengths, doc_len=DOC_LEN), 3, warmup=1)
-    emb_bf = emb.to(torch.bfloat16)
-    q_bf = q_emb.reshape(-1, DIM).to(torch.bfloat16).T.contiguous()
-    mm_ms = cuda_ms(lambda: torch.matmul(emb_bf, q_bf), 10)
-    del emb_bf
-    # the work this run's data needs: products and int8 reads only for
-    # rows with a nonzero scale (the rest are masked to -1e30); every
-    # scale, the query and the output once
-    valid_rows = int((scales > 0).sum())
-    flops = 2.0 * BATCH * LQ * DIM * valid_rows
-    nbytes = (valid_rows * DIM + scales.numel() * 4 + q_emb.numel() * 4
-              + BATCH * n_pad * 4)
-    peak_flops, peak_bw = peaks_for(name)
-    t_ops, t_bytes = flops / peak_flops * 1e3, nbytes / peak_bw * 1e3
-    log(f"maxsim_int8 at B={BATCH} Lq={LQ} N={n_pad} L={DOC_LEN} D={DIM}: "
-        f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-        f"{max(t_ops, t_bytes):.3f} ms ({flops / 1e12:.3f} TFLOP, "
-        f"{nbytes / 1e9:.3f} GB; {valid_rows} of {scales.numel()} rows "
-        f"valid), bf16 matmul of the product alone {mm_ms:.3f} ms")
-    for p, r in routes.items():
-        profile_route(p, r, batches)
-    print(json.dumps({"retrieve_batch_ms": {str(p): v for p, v in lat.items()},
-                      "card": card}))
-    print(json.dumps({"kernels": [{
-        "name": "maxsim_int8", "route": "cuda",
-        "source": f"{PORT}/csrc/maxsim_int8.cu",
-        "replaces": "hybrid_rag_colbertv2_tpu/ops/maxsim.py:231",
-        "launches": launches, "max_abs_err": err, "ms": k_ms,
-        "plain_ms": p_ms, "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None, "matmul_only_ms": mm_ms}]}))
+        lat[f"{lay}/{p}"] = {"p50": statistics.median(ts), "p90": q[-1]}
+        n_docs = paths[lay]["dense"].n_docs
+        log(f"retrieve_batch {lay} dense_prefilter={p}: p50 "
+            f"{statistics.median(ts):.3f} ms, p90 {q[-1]:.3f} ms (batch "
+            f"{BATCH}, {n_docs} chunks, host clock, {len(ts)} calls)")
+    rows = []
+    for kernel, (layout, _, _, src, line) in KERNELS.items():
+        nums = kernel_numbers(kernel, paths[layout], q_embs[layout], peaks)
+        rows.append({"name": kernel, "route": "cuda",
+                     "source": f"{PORT}/csrc/{src}",
+                     "replaces": f"{JAX_MAXSIM}:{line}",
+                     "launches": launches[kernel], **nums})
+    for lay, path in paths.items():
+        for p, r in path["routes"].items():
+            profile_route(f"{lay} dense_prefilter={p}", r, path["batches"])
+    print(json.dumps({"retrieve_batch_ms": lat, "card": card}))
+    print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
@@ -376,7 +568,7 @@ def main() -> int:
     return 0
 
 
-def profile_route(prefilter, retriever, batches, calls: int = 5) -> None:
+def profile_route(label, retriever, batches, calls: int = 5) -> None:
     """Device time per retrieve_batch by kernel name, and the device's
     busy share of the wall time (torch.profiler, CUDA activity)."""
     import torch
@@ -395,19 +587,19 @@ def profile_route(prefilter, retriever, batches, calls: int = 5) -> None:
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile dense_prefilter={prefilter}: wall {wall_ms:.3f} ms/call, "
-        f"device {busy:.3f} ms/call (busy share {busy / wall_ms:.1%}), "
+    log(f"profile {label}: wall {wall_ms:.3f} ms/call, device "
+        f"{busy:.3f} ms/call (busy share {busy / wall_ms:.1%}), "
         f"{sum(r[1] for r in rows)} device ops/call")
-    for ms_, n, key in rows[:12]:
+    for ms_, n, key in rows[:8]:
         log(f"  {ms_:8.3f} ms  x{n:<4d} {key[:90]}")
 
 
-def check_small_cascade(device) -> int:
-    """A 600-doc index served on the card (kernel) and on the CPU (plain
-    versions) must give the same final scores and ids on both routes.
-    Its closest two final scores are ~2e-4 apart, inside the tolerance,
-    so two ids may swap, but only where their CPU scores tie within the
-    tolerance. Returns the number of swapped slots."""
+def check_small_cascade(device, layouts) -> dict:
+    """A 600-doc index of each of ``layouts`` served on the card
+    (kernels) and on the CPU (plain versions) must give the same final
+    scores and ids on both routes. Its closest final scores lie inside
+    the tolerance, so two ids may swap, but only where their CPU scores
+    tie within the tolerance. -> {layout: swapped slots}"""
     import numpy as np
     import torch
     from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
@@ -430,33 +622,37 @@ def check_small_cascade(device) -> int:
         enc = ColBERTEncoder(
             ColBERTConfig.small(vocab_size=4096, num_layers=2),
             HashTokenizer(4096), seed=5, device=dev)
-        mgr = IndexManager(RAGConfig(), enc, device=dev)
-        mgr.lexical = lex
         embs, lengths = enc.encode_docs(corpus, doc_len=64)
-        mgr.dense = DenseTokenIndex.build(embs, lengths, doc_len=64,
-                                          dtype="int8")
-        for p in (1024, 0):
-            r = HybridRetriever(RAGConfig(dense_prefilter=p,
-                                          final_fusion="rerank"),
-                                mgr, enc, device=dev)
-            out[(dev.type, p)] = r.retrieve_batch(queries)
+        for layout in layouts:
+            mgr = IndexManager(RAGConfig(), enc, device=dev)
+            mgr.lexical = lex
+            mgr.dense = DenseTokenIndex.build(embs, lengths, doc_len=64,
+                                              dtype=layout)
+            for p in (1024, 0):
+                r = HybridRetriever(RAGConfig(dense_prefilter=p,
+                                              final_fusion="rerank"),
+                                    mgr, enc, device=dev)
+                out[(dev.type, layout, p)] = r.retrieve_batch(queries)
     rtol, atol = 1e-4, 1e-3
-    swaps = 0
-    for p in (1024, 0):
-        gi, gs = out[("cuda", p)]
-        ci, cs = out[("cpu", p)]
-        if not np.allclose(gs, cs, rtol=rtol, atol=atol):
-            raise AssertionError(f"small cascade scores differ, route {p}")
-        for row, j in np.argwhere(gi != ci):
-            # the card's doc in this slot, scored on the CPU: its slot
-            # there, or below the CPU's last slot when it fell out
-            hit = np.flatnonzero(ci[row] == gi[row, j])
-            cpu_score = cs[row, hit[0]] if hit.size else cs[row, -1]
-            if not np.isclose(cpu_score, cs[row, j], rtol=rtol, atol=atol):
-                raise AssertionError(
-                    f"small cascade ids differ beyond ties, route {p}: "
-                    f"{gi[row]} vs {ci[row]}")
-            swaps += 1
+    swaps = dict.fromkeys(layouts, 0)
+    for layout in layouts:
+        for p in (1024, 0):
+            gi, gs = out[("cuda", layout, p)]
+            ci, cs = out[("cpu", layout, p)]
+            if not np.allclose(gs, cs, rtol=rtol, atol=atol):
+                raise AssertionError(f"small {layout} cascade scores "
+                                     f"differ, route {p}")
+            for row, j in np.argwhere(gi != ci):
+                # the card's doc in this slot, scored on the CPU: its slot
+                # there, or below the CPU's last slot when it fell out
+                hit = np.flatnonzero(ci[row] == gi[row, j])
+                cpu_score = cs[row, hit[0]] if hit.size else cs[row, -1]
+                if not np.isclose(cpu_score, cs[row, j], rtol=rtol,
+                                  atol=atol):
+                    raise AssertionError(
+                        f"small {layout} cascade ids differ beyond ties, "
+                        f"route {p}: {gi[row]} vs {ci[row]}")
+                swaps[layout] += 1
     return swaps
 
 

@@ -12,9 +12,10 @@ serves from the other. The package imports torch and numpy, never JAX and
 nothing of the JAX package (it keeps its own copies of the JAX-free
 modules it needs).
 
-Slice 1 (this layout): the flat int8 index, both dense routes
-(``dense_prefilter`` > 0 pruned, 0 full scan through the CUDA int8 MaxSim
-kernel). See ROADMAP.md for the rest.
+Served so far: the flat index in every layout (int8, int8-doc,
+int4-doc, bfloat16, float32), both dense routes (``dense_prefilter`` > 0
+pruned, 0 full scan through the layout's CUDA MaxSim kernel). See
+ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

@@ -77,11 +77,10 @@ class MeshConfig:
         "int8" when the int8 index (embeddings + per-row scales +
         lengths) fits under 80% of the card's total memory per shard
         (``torch.cuda.mem_get_info``; the same margin as the JAX
-        package's ``utils/profiling.py::index_capacity_estimate``). A CPU
-        ``device`` resolves to "int8" so behavior is deterministic in
-        tests. Where the index would not fit, "auto" would pick the
-        nibble-packed "int4-doc" layout, which this package does not
-        serve yet: it raises. Concrete dtypes pass through unchanged.
+        package's ``utils/profiling.py::index_capacity_estimate``), else
+        the nibble-packed "int4-doc" (half the bytes). A CPU ``device``
+        resolves to "int8" so behavior is deterministic in tests.
+        Concrete dtypes pass through unchanged.
         """
         if self.index_dtype != "auto":
             return self.index_dtype
@@ -94,13 +93,7 @@ class MeshConfig:
         n = max(n_docs, 1)
         total = n * doc_len * dim + n * doc_len * 4 + n * 4
         _, limit = torch.cuda.mem_get_info(device)
-        if total / n_devices < limit * 0.8:
-            return "int8"
-        raise NotImplementedError(
-            "index_dtype='auto' resolved to 'int4-doc' (the int8 index "
-            f"needs {total / n_devices / 2**30:.1f} GiB per device); the "
-            "int4-doc layout comes with the port of maxsim_scores_int4_doc "
-            "(ROADMAP.md, TPU kernels still to port)")
+        return "int8" if total / n_devices < limit * 0.8 else "int4-doc"
 
 
 @dataclass

@@ -2,15 +2,16 @@
 ``hybrid_rag_colbertv2_tpu/index/dense.py`` (flat layout).
 
 Every document's token embeddings, padded to a static ``doc_len`` and
-stored token-major as ``(N_pad * doc_len, D)`` on the device. ``int8``
-stores symmetric absmax rows + per-token-row fp32 scales (ops/quant.py),
-dequantized inside the MaxSim kernel; float layouts store raw rows.
+stored token-major on the device, in one of five layouts (ops/quant.py):
+``float32`` / ``bfloat16`` raw rows; ``int8`` rows with per-token-row fp32
+scales; ``int8-doc`` rows with one scale per document; ``int4-doc``
+nibble-packed pair-rows ``(N_pad * doc_len / 2, D)`` with per-token-group
+scales. Each layout's full scan is a CUDA kernel on the card
+(ops/maxsim.py).
 
 The on-disk format is the JAX package's byte for byte (``dense.npz`` +
 ``meta.json``; bf16 persists as uint16 bits, the pooled vectors as fp16),
-so an index saved by either package loads in the other. This slice
-searches the int8 layout; searching another layout raises and names the
-slice that brings its kernel.
+so an index saved by either package loads in the other.
 """
 
 from __future__ import annotations
@@ -24,18 +25,16 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..ops.maxsim import maxsim_scores_exact, maxsim_scores_int8
+from ..ops.maxsim import (maxsim_scores, maxsim_scores_exact,
+                          maxsim_scores_int4_doc, maxsim_scores_int8,
+                          maxsim_scores_int8_doc)
 from ..ops.prefilter import maxsim_topk_pruned, pooled_doc_embeddings
-from ..ops.quant import quantize_int8_rows
+from ..ops.quant import (doc_row_scales, int4_group_size,
+                         quantize_int4_groups, quantize_int8_docs,
+                         quantize_int8_rows, unpack_int4_pairs)
 from ..ops.topk import top_k
 from ..utils.device import DeviceLike, resolve_device
 
-_UNPORTED_SEARCH = {
-    "bfloat16": "maxsim_scores (_maxsim_kernel)",
-    "float32": "maxsim_scores (_maxsim_kernel)",
-    "int8-doc": "maxsim_scores_int8_doc (_maxsim_int8_doc_kernel)",
-    "int4-doc": "maxsim_scores_int4_doc (_maxsim_int4_group_kernel)",
-}
 _NP_NAMES = {torch.int8: "int8", torch.bfloat16: "bfloat16",
              torch.float32: "float32"}
 
@@ -63,8 +62,9 @@ class DenseTokenIndex:
     dim: int
     scales: Optional[torch.Tensor] = None      # (N_pad * L,) f32 when int8
     pooled: Optional[torch.Tensor] = None      # (N_pad, D) bf16 prefilter
-    # per-doc (N_pad,) or per-group (G, N_pad) scales of the int8-doc /
-    # int4-doc layouts: loaded and saved, not searched in this slice
+    # (N_pad,) f32 per-document scales of "int8-doc" (padding rows copy
+    # the doc's row 0); (G, N_pad) f32 per-token-group scales of
+    # "int4-doc", doc axis minor (ops/quant.py::quantize_int4_groups)
     doc_scales: Optional[torch.Tensor] = None
 
     # ------------------------------------------------------------------
@@ -75,16 +75,12 @@ class DenseTokenIndex:
         lengths: torch.Tensor,      # (N,) true token counts
         *,
         doc_len: int,
-        dtype: str = "int8",
+        dtype: str = "bfloat16",
         docs_pad_multiple: int = 128,
     ) -> "DenseTokenIndex":
-        """Lay encoder output into the padded int8 index, on its device.
-        Other layouts load and save but are built with their kernel's
-        slice."""
-        if dtype != "int8":
-            raise NotImplementedError(
-                f"building the {dtype!r} layout comes with the port of "
-                f"{_UNPORTED_SEARCH[dtype]} (ROADMAP.md)")
+        """Lay encoder output into the padded index of layout ``dtype``
+        ("float32", "bfloat16", "int8", "int8-doc" or "int4-doc"), on
+        the device of ``token_embs``."""
         n, l_in, d = token_embs.shape
         dev = token_embs.device
         lengths = torch.clamp(lengths.to(device=dev, dtype=torch.int32),
@@ -103,12 +99,25 @@ class DenseTokenIndex:
             token_embs = torch.nn.functional.pad(
                 token_embs, (0, 0, 0, 0, 0, n_pad - n))
             lengths = torch.nn.functional.pad(lengths, (0, n_pad - n))
-        flat, scales = quantize_int8_rows(
-            token_embs.reshape(n_pad * doc_len, d))
-        pooled = pooled_doc_embeddings(flat, scales, lengths, doc_len=doc_len)
+        scales = doc_scales = None
+        if dtype == "int8":
+            flat, scales = quantize_int8_rows(
+                token_embs.reshape(n_pad * doc_len, d))
+        elif dtype == "int8-doc":
+            flat, doc_scales = quantize_int8_docs(token_embs, lengths)
+        elif dtype == "int4-doc":
+            flat, doc_scales = quantize_int4_groups(token_embs, lengths)
+        elif dtype in ("float32", "bfloat16"):
+            flat = token_embs.reshape(n_pad * doc_len, d).to(
+                getattr(torch, dtype))
+        else:
+            raise ValueError(f"unknown index dtype {dtype!r}")
+        pooled = pooled_doc_embeddings(flat, scales, lengths, doc_len=doc_len,
+                                       doc_scales=doc_scales,
+                                       packed_int4=dtype == "int4-doc")
         return cls(emb_flat=flat.contiguous(), doc_lengths=lengths,
                    n_docs=n, doc_len=doc_len, dim=d, scales=scales,
-                   pooled=pooled)
+                   pooled=pooled, doc_scales=doc_scales)
 
     # ------------------------------------------------------------------
     @property
@@ -148,17 +157,11 @@ class DenseTokenIndex:
     def ensure_pooled(self) -> torch.Tensor:
         """Compute (and cache) the prefilter vectors if absent."""
         if self.pooled is None:
-            self._require_searchable()
             self.pooled = pooled_doc_embeddings(
                 self.emb_flat, self.scales, self.doc_lengths,
-                doc_len=self.doc_len)
+                doc_len=self.doc_len, doc_scales=self.doc_scales,
+                packed_int4=self.is_int4)
         return self.pooled
-
-    def _require_searchable(self) -> None:
-        if not self.is_int8:
-            raise NotImplementedError(
-                f"searching the {self.quant!r} layout comes with the port "
-                f"of {_UNPORTED_SEARCH[self.quant]} (ROADMAP.md)")
 
     # ------------------------------------------------------------------
     def search_topk(self, queries: torch.Tensor, k: int, prefilter: int = 0,
@@ -166,36 +169,54 @@ class DenseTokenIndex:
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(B, Lq, D) -> (scores (B, k), ids (B, k)); ids < 0 = missing.
         ``prefilter`` > 0 takes the pruned two-stage route."""
-        self._require_searchable()
         if prefilter > 0:
             return maxsim_topk_pruned(
                 queries, self.emb_flat, self.scales, self.doc_lengths,
-                self.ensure_pooled(), doc_len=self.doc_len,
-                n_docs=self.n_docs, n_candidates=prefilter, k=k,
-                approx_recall=approx_recall)
+                self.ensure_pooled(), doc_scales=self.doc_scales,
+                doc_len=self.doc_len, n_docs=self.n_docs,
+                n_candidates=prefilter, k=k, approx_recall=approx_recall)
         vals, ids = top_k(self.search_scores(queries), min(k, self.n_docs))
         return vals, ids.to(torch.int32)
 
     def search_scores(self, queries: torch.Tensor) -> torch.Tensor:
-        """(B, Lq, D) query token embeddings -> (B, n_docs) MaxSim scores
-        (the full int8 scan: the CUDA kernel on the card)."""
-        self._require_searchable()
-        s = maxsim_scores_int8(queries, self.emb_flat, self.scales,
-                               self.doc_lengths, doc_len=self.doc_len)
+        """(B, Lq, D) query token embeddings -> (B, n_docs) MaxSim scores:
+        the layout's full scan (its CUDA kernel on the card). A float32
+        index is scanned as bf16 here, as the JAX package does; the
+        cascade scans it in float32."""
+        if self.is_int4:
+            s = maxsim_scores_int4_doc(queries, self.emb_flat,
+                                       self.doc_scales, self.doc_lengths,
+                                       doc_len=self.doc_len)
+        elif self.doc_scales is not None:
+            s = maxsim_scores_int8_doc(queries, self.emb_flat,
+                                       self.doc_scales, self.doc_lengths,
+                                       doc_len=self.doc_len)
+        elif self.is_int8:
+            s = maxsim_scores_int8(queries, self.emb_flat, self.scales,
+                                   self.doc_lengths, doc_len=self.doc_len)
+        else:
+            s = maxsim_scores(queries, self.emb_flat.to(torch.bfloat16),
+                              self.doc_lengths, doc_len=self.doc_len)
         return s[:, : self.n_docs]
 
     def gather_docs(self, ids: torch.Tensor
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Gather (ids…, L, D) fp32 embeddings + lengths for reranking.
-        ``ids`` < 0 read a padding slot and get length 0."""
-        if self.doc_scales is not None:
-            self._require_searchable()
+        ``ids`` < 0 read a padding slot and get length 0; the doc-scale
+        layouts' copied padding rows are masked by the lengths
+        downstream."""
         safe = torch.where(ids >= 0, ids, self.n_pad - 1).long()
-        embs3 = self.emb_flat.reshape(self.n_pad, self.doc_len, -1)
-        gathered = embs3[safe].to(torch.float32)
+        rpd = self.doc_len // 2 if self.is_int4 else self.doc_len
+        gathered = self.emb_flat.reshape(self.n_pad, rpd, -1)[safe]
+        if self.is_int4:         # packed stays packed through the gather
+            gathered = unpack_int4_pairs(gathered)    # (…, L, D) token order
+        gathered = gathered.to(torch.float32)
         if self.is_int8:
             sc = self.scales.reshape(self.n_pad, self.doc_len)[safe]
             gathered = gathered * sc[..., None]
+        elif self.doc_scales is not None:
+            gathered = gathered * doc_row_scales(
+                self.doc_scales, safe, self.doc_len)[..., None]
         lens = torch.where(ids >= 0, self.doc_lengths[safe], 0)
         return gathered, lens
 
@@ -274,17 +295,10 @@ class DenseTokenIndex:
                 and meta.get("dtype") == "int4-doc"):
             # legacy per-DOC int4 scales: broadcast over the group axis
             # (exact under the group kernel, see the JAX loader)
-            ng = meta["doc_len"] // _int4_group_size(meta["doc_len"])
+            ng = meta["doc_len"] // int4_group_size(meta["doc_len"])
             doc_scales = doc_scales[None, :].repeat(ng, 1)
         return cls(emb_flat=emb.to(dev), doc_lengths=lengths,
                    n_docs=meta["n_docs"], doc_len=meta["doc_len"],
                    dim=meta["dim"], scales=scales, pooled=pooled,
                    doc_scales=doc_scales)
 
-
-def _int4_group_size(doc_len: int, group: int = 8) -> int:
-    """Token rows per int4 group (copy of ops/quant.py::int4_group_size)."""
-    g = group
-    while g > 2 and doc_len % g != 0:
-        g //= 2
-    return g

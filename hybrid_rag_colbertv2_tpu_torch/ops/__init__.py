@@ -1,7 +1,10 @@
 from .maxsim import (  # noqa: F401
     NEG_INF,
+    maxsim_scores,
     maxsim_scores_exact,
+    maxsim_scores_int4_doc,
     maxsim_scores_int8,
+    maxsim_scores_int8_doc,
     maxsim_scores_int8_reference,
 )
 from .fusion import (  # noqa: F401
@@ -18,5 +21,14 @@ from .prefilter import (  # noqa: F401
     pooled_doc_embeddings,
     pooled_proxy_topk,
 )
-from .quant import dequantize_int8_rows, quantize_int8_rows  # noqa: F401
+from .quant import (  # noqa: F401
+    dequantize_int4_groups,
+    dequantize_int8_rows,
+    int4_group_size,
+    quantize_int4_groups,
+    quantize_int8_docs,
+    quantize_int8_rows,
+    unpack_int4,
+    unpack_int4_pairs,
+)
 from .topk import top_k  # noqa: F401

@@ -3,10 +3,11 @@
 Each kernel source is compiled by ``nvcc`` into a shared library with a
 plain C interface and loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds. Libraries go to ``build/kernels/`` at the repository
-root (listed in .gitignore), keyed by a hash of the source and the flags,
-so a checkout builds everything it needs from its own sources and a
-changed source is never served a stale library. A failed build raises;
-nothing falls back.
+root (listed in .gitignore), keyed by a hash of the source, of every
+``csrc/`` header it includes (transitively), and of the flags, so a
+checkout builds everything it needs from its own sources and a changed
+source or shared header is never served a stale library. A failed build
+raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -14,17 +15,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, List, Sequence
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -42,28 +45,66 @@ def _nvcc() -> str:
                        "CUDA kernels are built from csrc/ at first use")
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{key[:16]}.so"
+def _sources(name: str, csrc: Path) -> List[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes with
+    quotes, transitively, in a fixed order."""
+    seen: List[Path] = []
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = (path.parent / inc.decode()).resolve()
+            if dep.is_file() and csrc.resolve() in dep.parents:
+                todo.append(dep)
+    return seen
+
+
+def library_path(name: str, csrc: Path = CSRC,
+                 build_dir: Path = BUILD_DIR) -> Path:
+    h = hashlib.sha256()
+    for path in _sources(name, csrc):
+        data = path.read_bytes()
+        h.update(f"{path.name}:{len(data)}:".encode())
+        h.update(data)
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_many(names: Sequence[str]) -> Dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` whose hashed library is missing,
+    one ``nvcc`` per source, all started together. ``ptxas -v`` output
+    (registers, shared memory, spills) is kept beside each library as
+    ``.log``. -> {name: library path}"""
+    outs = {name: library_path(name) for name in names}
+    procs = {}
+    for name, out in outs.items():
+        if out.exists() or name in procs:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        outs[name].with_suffix(".log").write_text(log)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed for {name}.cu:\n{log}")
+        else:
+            os.replace(tmp, outs[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return outs
 
 
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    # ptxas -v (registers, shared memory, spills) is kept beside the library
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return build_many([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

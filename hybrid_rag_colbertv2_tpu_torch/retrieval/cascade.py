@@ -29,8 +29,10 @@ from ..index.dense import DenseTokenIndex
 from ..index.manager import IndexManager
 from ..ops.bm25 import bm25_topk_device
 from ..ops.fusion import final_topk_select, rrf_from_topk, union_floor_split
-from ..ops.maxsim import maxsim_scores_int8
+from ..ops.maxsim import (maxsim_scores, maxsim_scores_int4_doc,
+                          maxsim_scores_int8, maxsim_scores_int8_doc)
 from ..ops.prefilter import candidate_sims, maxsim_topk_pruned
+from ..ops.quant import doc_row_scales
 from ..ops.topk import top_k
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import StageTimer, get_logger
@@ -89,11 +91,12 @@ def hybrid_cascade(
     indptr: torch.Tensor,
     post_docs: torch.Tensor,
     post_weights: torch.Tensor,
-    emb_flat: torch.Tensor,       # (N_pad * L, D) int8
+    emb_flat: torch.Tensor,       # (N_pad * L, D), or (N_pad * L/2, D) packed
     scales: Optional[torch.Tensor],
     doc_lengths: torch.Tensor,    # (N_pad,)
     pooled: Optional[torch.Tensor] = None,     # (N_pad, D), if prefilter
-    doc_scales: Optional[torch.Tensor] = None,
+    doc_scales: Optional[torch.Tensor] = None,  # (N_pad,) for "int8-doc";
+                                                # (G, N_pad) for "int4-doc"
     *,
     n_docs: int,
     max_postings: int,
@@ -110,23 +113,31 @@ def hybrid_cascade(
     fusion_weight_bm25: float = 0.5,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (final_ids (B, k_final), final_scores, debug dict)."""
-    if doc_scales is not None or not is_int8:
-        raise NotImplementedError(
-            "this slice serves the int8 (per-token-row) layout; the others "
-            "come with their MaxSim kernels (ROADMAP.md)")
     n_pad = doc_lengths.shape[0]
+    # nibble-packed int4-doc pair-rows: detected by the row count (their
+    # width equals the raw layouts')
+    packed4 = emb_flat.shape[0] * 2 == n_pad * doc_len
 
     # Stage 2: dense top-k — pruned two-stage search or full MaxSim scan
     ke = min(k_dense if k_dense is not None else k_each, n_docs)
     if prefilter > 0:
         ms_vals, ms_ids = maxsim_topk_pruned(
-            q_emb, emb_flat, scales, doc_lengths, pooled, doc_len=doc_len,
-            n_docs=n_docs, n_candidates=prefilter, k=ke,
-            approx_recall=approx_recall)
+            q_emb, emb_flat, scales if is_int8 else None, doc_lengths,
+            pooled, doc_scales=doc_scales, doc_len=doc_len, n_docs=n_docs,
+            n_candidates=prefilter, k=ke, approx_recall=approx_recall)
     else:
-        ms = maxsim_scores_int8(q_emb, emb_flat, scales, doc_lengths,
-                                doc_len=doc_len)[:, :n_docs]
-        ms_vals, ms_ids = top_k(ms, ke)
+        if doc_scales is not None and packed4:
+            ms = maxsim_scores_int4_doc(q_emb, emb_flat, doc_scales,
+                                        doc_lengths, doc_len=doc_len)
+        elif doc_scales is not None:
+            ms = maxsim_scores_int8_doc(q_emb, emb_flat, doc_scales,
+                                        doc_lengths, doc_len=doc_len)
+        elif is_int8:
+            ms = maxsim_scores_int8(q_emb, emb_flat, scales, doc_lengths,
+                                    doc_len=doc_len)
+        else:       # a float32 index is scanned in float32 here
+            ms = maxsim_scores(q_emb, emb_flat, doc_lengths, doc_len=doc_len)
+        ms_vals, ms_ids = top_k(ms[:, :n_docs], ke)
         ms_ids = ms_ids.to(torch.int32)
 
     # Stage 1: BM25 top-k — sort-based, no (B, N) scatter; missing = -1
@@ -142,13 +153,20 @@ def hybrid_cascade(
         bm25_ids, ms_ids, k=min(k_fuse, n_docs), rrf_k=rrf_k,
         weights=(2.0 * w, 2.0 * (1.0 - w)), floor_m=fm)
 
-    # Stage 3: exact fp32 rerank over the gathered int8 rows, dequantized
-    # on the (Lq, L) sims after the matmul (sim(q, s*e) = s * (q . e))
+    # Stage 3: exact fp32 rerank over the gathered stored rows (packed
+    # int4 stays packed through the gather), dequantized on the (Lq, L)
+    # sims after the matmul (sim(q, s*e) = s * (q . e)); the doc-scale
+    # layouts' copied padding rows are masked by the lengths
     live = fused_ids >= 0
     safe = torch.where(live, fused_ids, n_pad - 1).long()   # (B, k_fuse)
-    embs3 = emb_flat.reshape(n_pad, doc_len, -1)
-    sims = candidate_sims(q_emb.to(torch.float32), embs3[safe])
-    sims = sims * scales.reshape(n_pad, doc_len)[safe][:, :, None, :]
+    embs3 = emb_flat.reshape(n_pad, doc_len // 2 if packed4 else doc_len, -1)
+    sims = candidate_sims(q_emb.to(torch.float32), embs3[safe],
+                          packed_pairs=packed4)             # (B, k, Lq, L)
+    if is_int8:
+        sims = sims * scales.reshape(n_pad, doc_len)[safe][:, :, None, :]
+    elif doc_scales is not None:
+        sc = doc_row_scales(doc_scales, safe, doc_len)      # (B, k_fuse, L)
+        sims = sims * sc[:, :, None, :]
     lens = torch.where(live, doc_lengths[safe], 0)
     tok = torch.arange(doc_len, device=emb_flat.device)
     valid = tok < lens[..., None]                           # (B, k_fuse, L)

@@ -1,0 +1,39 @@
+"""The kernel library's cache key covers every ``csrc/`` file a source
+includes, so an edited shared header rebuilds each kernel that uses it
+(no nvcc needed: only the key is computed)."""
+
+from hybrid_rag_colbertv2_tpu_torch.ops import _build
+
+
+def _write(csrc, files):
+    for name, text in files.items():
+        (csrc / name).write_text(text)
+
+
+def test_library_key_covers_included_headers(tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    _write(csrc, {
+        "a.cu": '#include "shared.cuh"\n#include <cuda_runtime.h>\n',
+        "b.cu": "// no includes\n",
+        "shared.cuh": '#pragma once\n#include "inner.cuh"\n',
+        "inner.cuh": "constexpr int kA = 1;\n",
+    })
+    key = {n: _build.library_path(n, csrc, tmp_path) for n in ("a", "b")}
+    assert key["a"].name.startswith("liba-") and key["a"].suffix == ".so"
+    assert _build.library_path("a", csrc, tmp_path) == key["a"]
+    # an edit two includes deep changes the includer's key, not b's
+    (csrc / "inner.cuh").write_text("constexpr int kA = 2;\n")
+    assert _build.library_path("a", csrc, tmp_path) != key["a"]
+    assert _build.library_path("b", csrc, tmp_path) == key["b"]
+    # a system header (angle brackets) or a file outside csrc/ is not read
+    assert [p.name for p in _build._sources("a", csrc)] == [
+        "a.cu", "shared.cuh", "inner.cuh"]
+
+
+def test_every_kernel_source_hashes_its_header():
+    """The four kernel sources include the shared mma header."""
+    for name in ("maxsim", "maxsim_int8", "maxsim_int8_doc",
+                 "maxsim_int4_group"):
+        names = [p.name for p in _build._sources(name, _build.CSRC)]
+        assert names == [f"{name}.cu", "maxsim_mma.cuh"]

@@ -1,5 +1,6 @@
 """The slice as a whole: the port serves an index directory the JAX
-package built, and returns the JAX retriever's final ids.
+package built, and returns the JAX retriever's final ids, for every flat
+index layout (int8, int8-doc, int4-doc, bfloat16, float32).
 
 The JAX ``IndexManager.build_all`` indexes a corpus of 64 distinct chunks
 with a tiny JAX encoder (BPE tokenizer and encoder params saved beside
@@ -30,6 +31,7 @@ from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
 from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
     ColBERTConfig, ColBERTEncoder)
 from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import ColBERTTokenizer
+from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as tm
 from hybrid_rag_colbertv2_tpu_torch.ops.maxsim import maxsim_scores_int8
 from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import HybridRetriever
 
@@ -51,14 +53,15 @@ def _paths(root, cls):
                tokenizer_path=str(root / "tokenizer.json"))
 
 
-@pytest.fixture(scope="module")
-def built(tmp_path_factory):
-    root = tmp_path_factory.mktemp("jax_index")
+def _build(root, dtype):
+    """A JAX-built index of layout ``dtype`` under ``root``, and the
+    port's manager and encoder loaded from its files."""
     tok = JaxTokenizer.train_bpe(CORPUS, vocab_size=512)
     tok.save(root / "tokenizer.json")
     enc = JaxEncoder(JaxColCfg.tiny(vocab_size=tok.vocab_size), tok, seed=0)
     enc.save_params(str(root / "encoder_params.npz"))
     cfg = _paths(root, JaxConfig)
+    cfg.mesh.index_dtype = dtype
     mgr = JaxManager(cfg, enc)
     mgr.build_all(CORPUS)
 
@@ -72,6 +75,24 @@ def built(tmp_path_factory):
     pmgr.load()
     pmgr.corpus = list(CORPUS)
     return root, enc, mgr, penc, pmgr
+
+
+@pytest.fixture(scope="module")
+def built(tmp_path_factory):
+    return _build(tmp_path_factory.mktemp("jax_index"), "int8")
+
+
+@pytest.fixture(scope="module", params=["int8-doc", "int4-doc", "bfloat16",
+                                        "float32"])
+def built_layout(request, tmp_path_factory):
+    return request.param, _build(tmp_path_factory.mktemp(request.param),
+                                 request.param)
+
+
+def _launch_counts():
+    return (tm.maxsim_scores.launches, tm.maxsim_scores_int8.launches,
+            tm.maxsim_scores_int8_doc.launches,
+            tm.maxsim_scores_int4_doc.launches)
 
 
 @pytest.mark.parametrize("final_fusion", ["rerank", "rrf", "union"])
@@ -95,6 +116,30 @@ def test_port_serves_jax_index_with_jax_ids(built, prefilter, final_fusion):
                                rtol=0)
     assert ids[2, 0] == PLANTED                    # verbatim text: rank 1
     assert set(retr.last_timings) == {"tokenize", "encode+cascade"}
+
+
+@pytest.mark.parametrize("final_fusion", ["rerank", "rrf", "union"])
+@pytest.mark.parametrize("prefilter", [0, 1024])
+def test_port_serves_jax_layouts_with_jax_ids(built_layout, prefilter,
+                                              final_fusion):
+    """The int8-doc, int4-doc, bfloat16 and float32 layouts: the port
+    loads the JAX-built directory and returns the JAX retriever's final
+    ids on both dense routes."""
+    dtype, (root, enc, mgr, penc, pmgr) = built_layout
+    assert pmgr.dense.quant == mgr.dense.quant == dtype
+    jcfg = _paths(root, JaxConfig)
+    pcfg = _paths(root, RAGConfig)
+    for c in (jcfg, pcfg):
+        c.dense_prefilter, c.final_fusion = prefilter, final_fusion
+    jids, jscores = JaxRetriever(jcfg, mgr, enc).retrieve_batch(QUERIES)
+    before = _launch_counts()
+    ids, scores = HybridRetriever(pcfg, pmgr, penc,
+                                  device="cpu").retrieve_batch(QUERIES)
+    assert _launch_counts() == before              # CPU: plain versions
+    assert np.array_equal(ids, np.asarray(jids))
+    np.testing.assert_allclose(scores, np.asarray(jscores), atol=1e-4,
+                               rtol=0)
+    assert ids[2, 0] == PLANTED
 
 
 def test_retrieve_returns_planted_text(built):

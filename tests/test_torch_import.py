@@ -70,6 +70,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
 
 
 def test_unported_layouts_raise(tmp_path):
+    """Every flat layout builds and serves; what is still unported (the
+    bucketed layout) raises; ``auto`` resolves to int8 on the CPU."""
     import jax.numpy as jnp
     import numpy as np
     from hybrid_rag_colbertv2_tpu.index.dense import (
@@ -81,8 +83,9 @@ def test_unported_layouts_raise(tmp_path):
 
     embs = np.random.default_rng(0).standard_normal((3, 64, 32), np.float32)
     lengths = np.array([5, 64, 0], np.int32)
+    q = np.random.default_rng(1).standard_normal((1, 32, 32), np.float32)
     # a bf16 directory saved by the JAX package loads, bits intact, and
-    # searching it names the kernel that has not been ported
+    # its search serves the JAX package's scores
     bf = JaxDenseTokenIndex.build(jnp.asarray(embs), jnp.asarray(lengths),
                                   doc_len=64, dtype="bfloat16")
     bf.save(tmp_path / "bf")
@@ -91,14 +94,15 @@ def test_unported_layouts_raise(tmp_path):
     np.testing.assert_array_equal(
         loaded.emb_flat.view(torch.int16).numpy().view(np.uint16),
         np.asarray(bf.emb_flat).view(np.uint16))
-    with pytest.raises(NotImplementedError, match="_maxsim_kernel"):
-        loaded.search_scores(torch.randn(1, 32, 32))
-    for dtype, kernel in (("bfloat16", "_maxsim_kernel"),
-                          ("int4-doc", "int4")):
-        with pytest.raises(NotImplementedError, match=kernel):
-            DenseTokenIndex.build(torch.from_numpy(embs),
-                                  torch.from_numpy(lengths), doc_len=64,
-                                  dtype=dtype)
+    np.testing.assert_allclose(
+        loaded.search_scores(torch.from_numpy(q)).numpy(),
+        np.asarray(bf.search_scores(jnp.asarray(q))), rtol=1e-5, atol=1e-4)
+    for dtype in ("bfloat16", "int4-doc"):
+        built = DenseTokenIndex.build(torch.from_numpy(embs),
+                                      torch.from_numpy(lengths), doc_len=64,
+                                      dtype=dtype)
+        assert built.quant == dtype
+        assert built.search_scores(torch.from_numpy(q)).shape == (1, 3)
     (tmp_path / "bk").mkdir()
     (tmp_path / "bk" / "meta.json").write_text('{"n_buckets": 2}')
     cfg = RAGConfig(bm25_index_path=str(tmp_path / "bm25"),

@@ -135,3 +135,241 @@ def test_pruned_route_matches_jax(n_candidates):
         torch.from_numpy(lengths), pooled_t, **kw)
     assert np.array_equal(np.asarray(ji), ti.numpy())
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+
+
+# --- bf16 / f32, int8-doc and int4-doc scans ----------------------------
+
+from hybrid_rag_colbertv2_tpu.ops import quant as jq  # noqa: E402
+from hybrid_rag_colbertv2_tpu_torch.ops import quant as tq  # noqa: E402
+
+
+def _float_docs(seed, n, doc_len, dim):
+    """Unit-norm rows, padding zeroed; docs 1 and 3 zero-length, doc 2
+    full with a valid row set to zero."""
+    _, _, lengths, x = _index(seed, n, doc_len, dim)
+    return x, lengths
+
+
+def _launch_counts():
+    return (tm.maxsim_scores.launches, tm.maxsim_scores_int8.launches,
+            tm.maxsim_scores_int8_doc.launches,
+            tm.maxsim_scores_int4_doc.launches)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,doc_len,n,dim", [
+    (1, 64, 37, 32),      # ragged N
+    (3, 64, 70, 32),
+    (3, 32, 21, 16),
+])
+def test_float_plain_version_matches_pallas(dtype, b, doc_len, n, dim):
+    x, lengths = _float_docs(b * 5 + n, n, doc_len, dim)
+    q = _queries(n, b, 16, dim)
+    flat_j = jnp.asarray(x.reshape(n * doc_len, dim)).astype(dtype)
+    js = np.array(jm.maxsim_scores(jnp.asarray(q), flat_j,
+                                   jnp.asarray(lengths), doc_len=doc_len))
+    flat_t = torch.from_numpy(x.reshape(n * doc_len, dim)).to(
+        getattr(torch, dtype))
+    before = _launch_counts()
+    ts = tm.maxsim_scores(torch.from_numpy(q), flat_t,
+                          torch.from_numpy(lengths), doc_len=doc_len).numpy()
+    assert _launch_counts() == before                 # CPU: no kernel
+    assert ts.shape == (b, n)
+    np.testing.assert_allclose(ts, js, **TOL)
+    assert (ts[:, [1, 3]] < -1e31).all()              # zero-length docs
+    k = min(10, n)
+    assert np.array_equal(top_k(torch.from_numpy(js), k)[1].numpy(),
+                          top_k(torch.from_numpy(ts), k)[1].numpy())
+
+
+def test_float_plain_masks_zeroed_valid_row():
+    """A valid row of zeros is masked by content: a doc whose only
+    valid row is zero scores -1e30 per query row, as in the TPU kernel."""
+    x = np.zeros((2, 32, 16), np.float32)
+    x[1, 0] = 1.0
+    lengths = np.array([1, 1], np.int32)
+    q = _queries(0, 1, 8, 16, pad_rows=0)
+    js = np.array(jm.maxsim_scores(jnp.asarray(q), jnp.asarray(
+        x.reshape(64, 16)), jnp.asarray(lengths), doc_len=32))
+    ts = tm.maxsim_scores(torch.from_numpy(q), torch.from_numpy(
+        x.reshape(64, 16)), torch.from_numpy(lengths), doc_len=32).numpy()
+    np.testing.assert_allclose(ts, js, **TOL)
+    assert ts[0, 0] < -1e30 and ts[0, 1] > -1e3
+
+
+def _doc_layout(seed, n, doc_len, dim, int4):
+    x, lengths = _float_docs(seed, n, doc_len, dim)
+    lengths[4 % n] = 1
+    quant = jq.quantize_int4_groups if int4 else jq.quantize_int8_docs
+    flat, sc = quant(jnp.asarray(x), jnp.asarray(lengths))
+    return np.array(flat), np.array(sc), lengths
+
+
+@pytest.mark.parametrize("b,doc_len,n,dim", [
+    (1, 64, 37, 32), (3, 32, 64, 32), (3, 64, 21, 16)])
+def test_int8_doc_plain_version_matches_pallas(b, doc_len, n, dim):
+    flat, sc, lengths = _doc_layout(b + n, n, doc_len, dim, int4=False)
+    q = _queries(n, b, 16, dim)
+    js = np.array(jm.maxsim_scores_int8_doc(
+        jnp.asarray(q), jnp.asarray(flat), jnp.asarray(sc),
+        jnp.asarray(lengths), doc_len=doc_len))
+    before = _launch_counts()
+    ts = tm.maxsim_scores_int8_doc(
+        torch.from_numpy(q), torch.from_numpy(flat), torch.from_numpy(sc),
+        torch.from_numpy(lengths), doc_len=doc_len).numpy()
+    assert _launch_counts() == before
+    assert ts.shape == (b, n)
+    np.testing.assert_allclose(ts, js, **TOL)
+    assert (ts[:, [1, 3]] == 0.0).all()               # zero-length docs
+    k = min(10, n)
+    assert np.array_equal(top_k(torch.from_numpy(js), k)[1].numpy(),
+                          top_k(torch.from_numpy(ts), k)[1].numpy())
+
+
+@pytest.mark.parametrize("b,doc_len,n,dim", [
+    (1, 16, 37, 32), (3, 32, 64, 32), (3, 12, 21, 16)])
+def test_int4_doc_plain_version_matches_pallas(b, doc_len, n, dim):
+    flat, gs, lengths = _doc_layout(7 * b + n, n, doc_len, dim, int4=True)
+    q = _queries(n, b, 8, dim, pad_rows=2)
+    js = np.array(jm.maxsim_scores_int4_doc(
+        jnp.asarray(q), jnp.asarray(flat), jnp.asarray(gs),
+        jnp.asarray(lengths), doc_len=doc_len))
+    before = _launch_counts()
+    ts = tm.maxsim_scores_int4_doc(
+        torch.from_numpy(q), torch.from_numpy(flat), torch.from_numpy(gs),
+        torch.from_numpy(lengths), doc_len=doc_len).numpy()
+    assert _launch_counts() == before
+    assert ts.shape == (b, n)
+    np.testing.assert_allclose(ts, js, **TOL)
+    assert (ts[:, [1, 3]] == 0.0).all()
+    # the same as the exact oracle over the dequantized rows, masked by
+    # length: the dup-row contract makes the unmasked scan exact
+    deq = tq.dequantize_int4_groups(torch.from_numpy(flat),
+                                    torch.from_numpy(gs))
+    oracle = tm.maxsim_scores_exact(
+        torch.from_numpy(q).to(torch.bfloat16),
+        deq.reshape(n, doc_len, dim), torch.from_numpy(lengths)).numpy()
+    live = lengths > 0
+    np.testing.assert_allclose(ts[:, live], oracle[:, live], **TOL)
+
+
+@pytest.mark.parametrize("name", ["float", "int8_doc", "int4_doc"])
+def test_new_references_blocking_is_invisible(name):
+    q = torch.from_numpy(_queries(5, 2, 16, 32))
+    if name == "float":
+        x, lengths = _float_docs(5, 50, 32, 32)
+        args = (q, torch.from_numpy(x.reshape(-1, 32)).to(torch.bfloat16),
+                torch.from_numpy(lengths))
+        fn = tm.maxsim_scores_reference
+    else:
+        flat, sc, lengths = _doc_layout(5, 50, 32, 32,
+                                        int4=name == "int4_doc")
+        args = (q, torch.from_numpy(flat), torch.from_numpy(sc),
+                torch.from_numpy(lengths))
+        fn = (tm.maxsim_scores_int4_doc_reference if name == "int4_doc"
+              else tm.maxsim_scores_int8_doc_reference)
+    assert torch.equal(fn(*args, doc_len=32),
+                       fn(*args, doc_len=32, block_docs=7))
+
+
+def test_new_cuda_wrappers_reject_bad_operands():
+    """The operand checks of the float, int8-doc and int4-doc wrappers
+    run before any launch (no card needed)."""
+    q = torch.from_numpy(_queries(6, 1, 32, 32))
+    x, lengths = _float_docs(6, 8, 64, 32)
+    lens = torch.from_numpy(lengths)
+    rows = torch.from_numpy(x.reshape(-1, 32))
+    with pytest.raises(ValueError, match="bfloat16/float32"):
+        tm._check_float_operands(q, rows.to(torch.float16), lens, 64)
+    with pytest.raises(ValueError, match="L % 64"):
+        tm._check_float_operands(q, rows[: 8 * 32], lens, 32)
+    with pytest.raises(ValueError, match="D % 16"):
+        tm._check_float_operands(q[..., :24], rows[:, :24].contiguous(),
+                                 lens, 64)
+    flat, sc, _ = _doc_layout(6, 8, 64, 32, int4=False)
+    with pytest.raises(ValueError, match="doc_scales"):
+        tm._check_int8_doc_operands(q, torch.from_numpy(flat),
+                                    torch.from_numpy(sc).double(), lens, 64)
+    with pytest.raises(ValueError, match="doc_lengths"):
+        tm._check_int8_doc_operands(q, torch.from_numpy(flat),
+                                    torch.from_numpy(sc), lens.long(), 64)
+    packed, gs, _ = _doc_layout(6, 8, 64, 32, int4=True)
+    with pytest.raises(ValueError, match="int8"):
+        tm._check_int4_operands(q, torch.from_numpy(packed).float(),
+                                torch.from_numpy(gs), lens, 64)
+    with pytest.raises(ValueError, match="group_scales"):
+        tm._check_int4_operands(q, torch.from_numpy(packed),
+                                torch.from_numpy(gs[:4]), lens, 64)
+    with pytest.raises(ValueError, match="Lq"):
+        tm._check_int4_operands(torch.zeros(1, 300, 32),
+                                torch.from_numpy(packed),
+                                torch.from_numpy(gs), lens, 64)
+    # well-formed operands pass
+    tm._check_int4_operands(q, torch.from_numpy(packed),
+                            torch.from_numpy(gs), lens, 64)
+    tm._check_int8_doc_operands(q, torch.from_numpy(flat),
+                                torch.from_numpy(sc), lens, 64)
+    tm._check_float_operands(q, rows, lens, 64)
+
+
+@pytest.mark.parametrize("layout", ["int8-doc", "int4-doc", "bfloat16",
+                                    "float32"])
+def test_pruned_route_matches_jax_on_layout(layout):
+    """The doc-scale and packed branches: bf16 proxies equal to JAX's up
+    to the fp32 sum's order, and the pruned route's ids equal JAX's
+    (exact candidate top-k on both; 40 candidates of 61 docs round up to
+    every doc, so the ids do not hang on a proxy ulp).
+
+    The port keeps the JAX order of operations (``e * (s * valid)``,
+    then the sum over L), but XLA's CPU compiler does not: by shape it
+    contracts the multiply into the sum as FMAs (L <= 32 here) or splits
+    the sum over L into windows of 32 (L >= 64), so a few fp32 sums
+    differ in their last bits. After the L2 normalization that is at
+    most ~1e-6 absolute, and a bf16 element differs by one ulp where its
+    fp32 value lies next to a rounding boundary (well under 1% of
+    elements). At this shape the float layouts' proxies, summed without
+    a multiply, come out bit-equal; at others XLA reorders their sums too
+    (test_torch_dense.py)."""
+    n, doc_len, dim = 64, 32, 32
+    x, lengths = _float_docs(17, n, doc_len, dim)
+    if layout in ("int8-doc", "int4-doc"):
+        flat, dsc, lengths = _doc_layout(17, n, doc_len, dim,
+                                         int4=layout == "int4-doc")
+        flat_j, dsc_j = jnp.asarray(flat), jnp.asarray(dsc)
+        flat_t, dsc_t = torch.from_numpy(flat), torch.from_numpy(dsc)
+    else:
+        flat_j = jnp.asarray(x.reshape(-1, dim)).astype(layout)
+        flat_t = torch.from_numpy(x.reshape(-1, dim)).to(getattr(torch, layout))
+        dsc_j = dsc_t = None
+    packed = layout == "int4-doc"
+    q = _queries(17, 3, 16, dim)
+    pooled_j = jp.pooled_doc_embeddings(
+        flat_j, None, jnp.asarray(lengths), doc_len=doc_len,
+        doc_scales=dsc_j, packed_int4=packed)
+    pooled_t = tp.pooled_doc_embeddings(
+        flat_t, None, torch.from_numpy(lengths), doc_len=doc_len,
+        doc_scales=dsc_t, packed_int4=packed, block=24)
+    pt, pj = pooled_t.float().numpy(), np.asarray(pooled_j, np.float32)
+    if dsc_t is None:
+        assert np.array_equal(pt, pj)
+    else:
+        np.testing.assert_allclose(pt, pj, rtol=2.0**-7, atol=1e-6)
+        assert (pt != pj).mean() <= 0.01
+    kw = dict(doc_len=doc_len, n_docs=n - 3, n_candidates=40, k=16)
+    jv, ji = jp.maxsim_topk_pruned(
+        jnp.asarray(q), flat_j, None, jnp.asarray(lengths), pooled_j,
+        doc_scales=dsc_j, approx_recall=1.0, **kw)
+    tv, ti = tp.maxsim_topk_pruned(
+        torch.from_numpy(q), flat_t, None, torch.from_numpy(lengths),
+        pooled_t, doc_scales=dsc_t, block=24, **kw)
+    assert np.array_equal(np.asarray(ji), ti.numpy())
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **TOL)
+
+
+def test_packed_candidate_sims_interleave_tokens():
+    flat, _, _ = _doc_layout(3, 4, 16, 16, int4=True)
+    docs = torch.from_numpy(flat).reshape(4, 8, 16)
+    q = torch.from_numpy(_queries(3, 1, 8, 16))[0]
+    sims = tp.candidate_sims(q, docs, packed_pairs=True)
+    full = tq.unpack_int4_pairs(docs).float()
+    assert torch.equal(sims, tp.candidate_sims(q, full))
