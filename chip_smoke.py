@@ -6,8 +6,9 @@
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
 JAX: builds every CUDA kernel from ``csrc/`` (one nvcc per source, all at
-once), holds each kernel against its plain PyTorch version on the card,
-then serves batches of 8 queries through ``HybridRetriever.retrieve_batch``
+once), holds each kernel against its plain PyTorch version on the card
+(the float kernels also on docs with nonzero rows past their length,
+which their content mask must score), then serves batches of 8 queries through ``HybridRetriever.retrieve_batch``
 with the ``small`` encoder preset (random weights from a seed), on both
 dense routes of every flat index layout:
 
@@ -73,9 +74,10 @@ KERNELS = {
     "maxsim_bf16": ("bfloat16", "maxsim_scores", "maxsim_scores_reference",
                     "maxsim.cu", 120),
     "maxsim_f32": ("float32", "maxsim_scores", "maxsim_scores_reference",
-                   "maxsim.cu", 120),
+                   "maxsim_f32.cu", 120),
 }
 LAYOUT_KERNEL = {v[0]: k for k, v in KERNELS.items()}
+FLOAT_KERNELS = ("maxsim_bf16", "maxsim_f32")
 WRAPPERS = ("maxsim_scores", "maxsim_scores_int8", "maxsim_scores_int8_doc",
             "maxsim_scores_int4_doc")
 
@@ -237,28 +239,31 @@ def scan(kernel: str, which: str, q, emb, scales, doc_scales, lengths,
 def phase_kernel_small(device):
     """Every kernel vs its plain version at small shapes: ragged N,
     zero-length docs, a zeroed valid row, B in {1, 8, 64}, L in {64, 128,
-    256}."""
+    256}; the float kernels also at D = 256 (B = 9: the fp32 kernel's
+    query spread over blocks; Lq = 200: in column segments) and D = 16."""
     import torch
     gen = torch.Generator(device=device).manual_seed(1)
-    cases = [(1, 64, 1037, 128), (8, 128, 3001, 128), (64, 256, 515, 128),
-             (9, 128, 700, 128), (3, 64, 77, 32)]
-    layouts = [KERNELS[k][0] for k in KERNELS]
-    for b, doc_len, n, dim in cases:
+    every, floats = tuple(KERNELS), FLOAT_KERNELS
+    cases = [(1, 64, 1037, 128, LQ, every), (8, 128, 3001, 128, LQ, every),
+             (64, 256, 515, 128, LQ, every), (9, 128, 700, 128, LQ, every),
+             (3, 64, 77, 32, LQ, every), (9, 128, 300, 256, LQ, floats),
+             (2, 64, 150, 256, 200, floats), (5, 64, 333, 16, LQ, floats)]
+    for b, doc_len, n, dim, lq, kernels in cases:
         zero = (0, n // 2)
         lengths, stores = random_layouts(
-            gen, n, doc_len, dim, device, layouts, n_topics=16,
+            gen, n, doc_len, dim, device,
+            sorted({KERNELS[k][0] for k in kernels}), n_topics=16,
             zero_docs=zero, zero_rows=((5, 1),), block=256)
-        q = torch.randn(b, LQ, dim, generator=gen, device=device)
+        q = torch.randn(b, lq, dim, generator=gen, device=device)
         q = q / q.norm(dim=-1, keepdim=True)
-        q[:, LQ - 3:] = 0.0                           # padded query rows
-        for kernel, (layout, *_) in KERNELS.items():
-            emb, scales, doc_scales = stores[layout]
-            out = scan(kernel, "kernel", q, emb, scales, doc_scales, lengths,
-                       doc_len)
+        q[:, lq - 3:] = 0.0                           # padded query rows
+        for kernel in kernels:
+            emb, scales, doc_scales = stores[KERNELS[kernel][0]]
+            out = scan(kernel, "kernel", q, emb, scales, doc_scales,
+                       lengths, doc_len)
             torch.cuda.synchronize()
             ref = scan(kernel, "plain", q, emb, scales, doc_scales, lengths,
                        doc_len)
-            torch.cuda.synchronize()
             err, same = compare(out, ref, min(100, n))
             zl = out[:, list(zero)]
             if doc_scales is not None:
@@ -268,8 +273,62 @@ def phase_kernel_small(device):
             elif not (zl < -1e31).all():
                 raise AssertionError(
                     f"{kernel}: zero-length docs must score -1e30 * Lq")
-            log(f"kernel {kernel} B={b} L={doc_len} N={n} D={dim}: "
+            log(f"kernel {kernel} B={b} Lq={lq} L={doc_len} N={n} D={dim}: "
                 f"max_abs_err={err:.3e} top100_ids_equal={same}")
+
+
+def phase_float_skip(device):
+    """The float kernels skip rows by content: each holds its plain
+    version on docs whose last nonzero row sits at every offset around
+    the 8-row groups and 64-row chunks, on docs with nonzero rows past
+    their length (the plain version scores them: a skip by length would
+    drop them) and on docs with zero rows inside their length."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
+    gen = torch.Generator(device=device).manual_seed(2)
+    b, n, doc_len, dim = 3, 301, 192, 128
+    q = torch.randn(b, LQ, dim, generator=gen, device=device)
+    q = q / q.norm(dim=-1, keepdim=True)
+    q[:, LQ - 3:] = 0.0
+    x = torch.randn(n, doc_len, dim, generator=gen, device=device)
+    x = x / x.norm(dim=-1, keepdim=True)
+    ends = (0, 1, 2, 7, 8, 9, 15, 16, 17, 56, 57, 63, 64, 65, 71, 72, 73,
+            127, 128, 129, 184, 185, 191, 192)
+    lengths = torch.tensor([ends[i % len(ends)] for i in range(n)],
+                           dtype=torch.int32, device=device)
+    x *= (torch.arange(doc_len, device=device)[None, :]
+          < lengths[:, None])[..., None]
+    # rows past the length: a copy of query 0's first token, so it raises
+    # that query's score by ~0.7 over the length-masked oracle's
+    past = {(1, 70), (2, 191), (3, 9), (4, 64), (24, 130), (26, 63)}
+    for doc, row in past:
+        assert row >= int(lengths[doc]), (doc, row)
+        x[doc, row] = q[0, 0]
+    for doc, rows in ((20, range(0, 8)), (12, (63,)), (13, (64,)),
+                      (18, range(8, 16)), (19, range(120, 128))):
+        assert max(rows) < int(lengths[doc]), (doc, rows)
+        x[doc, list(rows)] = 0.0
+    docs_past = sorted({d for d, _ in past})
+    zero_docs = [d for d in range(n)
+                 if lengths[d] == 0 and d not in docs_past]
+    oracle = ms.maxsim_scores_exact(q, x, lengths)
+    for kernel in FLOAT_KERNELS:
+        dtype = torch.float32 if kernel == "maxsim_f32" else torch.bfloat16
+        emb = x.reshape(n * doc_len, dim).to(dtype)
+        out = scan(kernel, "kernel", q, emb, None, None, lengths, doc_len)
+        torch.cuda.synchronize()
+        ref = scan(kernel, "plain", q, emb, None, None, lengths, doc_len)
+        err, same = compare(out, ref, 100)
+        if not (out[:, zero_docs] < -1e31).all():
+            raise AssertionError(f"{kernel}: all-zero docs must score "
+                                 "-1e30 * Lq")
+        if not (out[0, docs_past] > oracle[0, docs_past] + 0.5).all():
+            raise AssertionError(f"{kernel}: rows past a doc's length must "
+                                 "count")
+        log(f"kernel {kernel} skip by content, L={doc_len} N={n}: "
+            f"max_abs_err={err:.3e} top100_ids_equal={same}; "
+            f"{len(zero_docs)} all-zero docs at -1e30*Lq, rows past the "
+            f"length counted in docs {docs_past}")
 
 
 def build_lexical(n_docs: int, seed: int):
@@ -423,6 +482,8 @@ def kernel_numbers(kernel, path, q_emb, peaks):
             dense.doc_lengths, dense.doc_len)
     full = scan(kernel, "kernel", *args)
     torch.cuda.synchronize()
+    if not torch.equal(full, scan(kernel, "kernel", *args)):
+        raise AssertionError(f"{kernel}: two launches differ")
     ref = scan(kernel, "plain", *args)
     err, same = compare(full, ref, 100)
     del full, ref
@@ -460,12 +521,16 @@ def kernel_numbers(kernel, path, q_emb, peaks):
     t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / peaks[1] * 1e3
     bound = max(t_ops, t_bytes)
     log(f"{kernel} at B={b} Lq={lq} N={n_pad} L={doc_len} D={d}: "
-        f"max_abs_err={err:.3e} top100_ids_equal={same}; kernel {k_ms:.3f} "
-        f"ms, plain {p_ms:.3f} ms, bound {bound:.3f} ms "
-        f"({flops / 1e12:.3f} TFLOP at {peak_ops / 1e12:.0f} TFLOP/s, "
-        f"{nbytes / 1e9:.3f} GB; {valid_rows} of {rows} rows valid), "
-        f"matmul of the product alone "
+        f"max_abs_err={err:.3e} top100_ids_equal={same}, two launches "
+        f"bit-equal; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{bound:.3f} ms ({flops / 1e12:.3f} TFLOP at "
+        f"{peak_ops / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB; "
+        f"{valid_rows} of {rows} rows valid), matmul of the product alone "
         f"{'n/a' if mm_ms is None else f'{mm_ms:.3f} ms'}")
+    log(f"{kernel}: {flops / k_ms / 1e9:.2f} TFLOP/s over valid rows, "
+        f"{flops / k_ms * 1e3 / peak_ops:.1%} of the "
+        f"{'fp32 FFMA' if layout == 'float32' else 'bf16 tensor'} peak; "
+        f"time / bound {k_ms / bound:.2f}")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, matmul_only_ms=mm_ms)
@@ -505,6 +570,7 @@ def main() -> int:
 
     # -- phase 2: each kernel vs its plain version at small shapes ------
     phase_kernel_small(device)
+    phase_float_skip(device)
     if "--kernels-only" in sys.argv[1:]:
         log("kernels-only: stopping after the kernel checks")
         return 0

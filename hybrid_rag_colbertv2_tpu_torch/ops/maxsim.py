@@ -7,7 +7,8 @@ over the document's valid token rows, fp32 accumulation. The fp32 oracle
 (``maxsim_scores_exact``) and one full scan per index layout, each the
 hand-written CUDA kernel that replaces its Pallas kernel:
 
-  ``maxsim_scores``           bf16 / f32 rows    csrc/maxsim.cu
+  ``maxsim_scores``           bf16 rows          csrc/maxsim.cu
+                              f32 rows           csrc/maxsim_f32.cu
                               (``_maxsim_kernel``)
   ``maxsim_scores_int8``      int8, row scales   csrc/maxsim_int8.cu
                               (``_maxsim_int8_kernel``)
@@ -300,8 +301,8 @@ def maxsim_scores(
     doc_len: int,
 ) -> torch.Tensor:              # (B, N) float32
     """Full scan of an unquantized index; the query is cast to the index
-    dtype. CUDA tensors launch the bf16 or the fp32 entry point of
-    csrc/maxsim.cu; CPU tensors run the plain version."""
+    dtype. CUDA tensors launch csrc/maxsim.cu (bf16 rows) or
+    csrc/maxsim_f32.cu (fp32 rows); CPU tensors run the plain version."""
     if not _on_card(emb_flat):
         return maxsim_scores_reference(queries, emb_flat, doc_lengths,
                                        doc_len=doc_len)
@@ -310,9 +311,10 @@ def maxsim_scores(
     b, lq, d = queries.shape
     q = queries.to(emb_flat.dtype).contiguous()
     out = torch.empty((b, n), dtype=torch.float32, device=emb_flat.device)
-    fn = ("maxsim_bf16_launch" if emb_flat.dtype == torch.bfloat16
-          else "maxsim_f32_launch")
-    _launch("maxsim", fn, emb_flat.device, (q, emb_flat, out),
+    lib, fn = (("maxsim", "maxsim_bf16_launch")
+               if emb_flat.dtype == torch.bfloat16
+               else ("maxsim_f32", "maxsim_f32_launch"))
+    _launch(lib, fn, emb_flat.device, (q, emb_flat, out),
             (b, lq, d, n, doc_len))
     maxsim_scores.launches += 1
     return out

@@ -197,6 +197,37 @@ def test_float_plain_masks_zeroed_valid_row():
     assert ts[0, 0] < -1e30 and ts[0, 1] > -1e3
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_float_plain_scores_rows_past_length(dtype):
+    """The float scan masks by content, never by length: a nonzero row
+    past a doc's length is scored, and a zero row inside it is masked,
+    as in the TPU kernel. The fp32 CUDA kernel skips row groups by the
+    same content test, so its plain version pins this contract."""
+    n, doc_len, dim = 6, 64, 32
+    x, lengths = _float_docs(21, n, doc_len, dim)
+    q = _queries(21, 2, 8, dim, pad_rows=2)
+    lengths[:] = [9, 0, 64, 0, 17, 40]
+    x *= (np.arange(doc_len)[None, :] < lengths[:, None])[..., None]
+    x[0, 63] = q[0, 0]          # past the length, in the last row group
+    x[1, 10] = q[0, 1]          # a zero-length doc with one nonzero row
+    x[4, 16] = x[4, 8] = 0.0    # zero rows inside the length
+    x[5, 0:8] = 0.0             # a whole zero row group inside the length
+    flat = x.reshape(n * doc_len, dim)
+    js = np.array(jm.maxsim_scores(
+        jnp.asarray(q), jnp.asarray(flat).astype(dtype),
+        jnp.asarray(lengths), doc_len=doc_len))
+    ts = tm.maxsim_scores(
+        torch.from_numpy(q), torch.from_numpy(flat).to(getattr(torch, dtype)),
+        torch.from_numpy(lengths), doc_len=doc_len).numpy()
+    np.testing.assert_allclose(ts, js, **TOL)
+    assert (ts[:, 3] < -1e30).all()                   # all-zero doc
+    # the rows past the length count: above the length-masked oracle
+    oracle = tm.maxsim_scores_exact(torch.from_numpy(q), torch.from_numpy(x),
+                                    torch.from_numpy(lengths)).numpy()
+    assert ts[0, 0] > oracle[0, 0] + 0.5
+    assert ts[0, 1] > -1e3 and oracle[0, 1] < -1e30
+
+
 def _doc_layout(seed, n, doc_len, dim, int4):
     x, lengths = _float_docs(seed, n, doc_len, dim)
     lengths[4 % n] = 1
