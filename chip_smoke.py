@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py                 # exits 0 on success; one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
+    python3 chip_smoke.py --int4-variant NAME=DIR ...  # + time other builds
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
 JAX: builds every CUDA kernel from ``csrc/`` (one nvcc per source, all at
 once), holds each kernel against its plain PyTorch version on the card
 (the float kernels also on docs with nonzero rows past their length,
-which their content mask must score), then serves batches of 8 queries through ``HybridRetriever.retrieve_batch``
-with the ``small`` encoder preset (random weights from a seed), on both
+which their content mask must score; the int4 kernel also at doc lengths
+on every 8-row group and 64-row chunk edge, and 300 times over on an
+index that stays in L2), then serves batches of 8
+queries through ``HybridRetriever.retrieve_batch`` with the ``small``
+encoder preset (random weights from a seed), on both
 dense routes of every flat index layout:
 
   * ``int8``, ``int8-doc``, ``bfloat16``, ``float32``: one 100,000-chunk x
@@ -31,6 +35,13 @@ from torch.profiler. Stdout ends with the ``{"kernels": [...]}`` summary
 line, the card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+
+``--int4-variant NAME=DIR`` (repeatable) names a directory laid out like
+``csrc/`` that holds another version of ``maxsim_int4_group.cu`` and the
+headers it includes (say, an unpacked parent commit's ``csrc/``). Each is
+built beside the port's kernels, takes the stress launches (its failures
+counted, not fatal), is held against the plain version on the main
+path's int4-doc index and is timed there beside the port's own build.
 """
 
 from __future__ import annotations
@@ -52,6 +63,11 @@ N_DOCS_INT4, DOC_LEN_INT4 = 1_000_000, 64
 N_TOPICS, TOPIC_NOISE = 512, 0.35
 PLANTED_DOC = 4242
 N_TIMED_CALLS = 40
+# launches of each kernel at the main shape that must agree bit for bit
+# (the first is held against the plain version)
+N_REPEATS = 50
+# launches of the int4 kernel on a small index that stays in L2
+N_STRESS = 300
 # kernel vs plain version: fp32 sums in other orders (products are exact)
 RTOL, ATOL = 1e-5, 1e-3
 # published dense peaks: (bf16 tensor FLOP/s, HBM bytes/s, fp32 FLOP/s on
@@ -277,6 +293,123 @@ def phase_kernel_small(device):
                 f"max_abs_err={err:.3e} top100_ids_equal={same}")
 
 
+INT4_EDGE_LENGTHS = (0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 56, 63, 64)
+
+
+def phase_int4_edges(device):
+    """maxsim_int4_group vs its plain version where its design has edges:
+    doc lengths at every 8-row group boundary and 64-row chunk edge
+    (partly and fully padded groups), N a multiple of neither 4 nor the
+    docs per block, D in {16, 64, 128, 256}, B in {1, 9, 64} (query rows
+    ending mid m-tile, several column tiles) and Lq = 200 (column
+    segments at D = 256); and N = 20,000 at D in {192, 208, 256}, a few
+    hundred docs per block, so that the transform warps cycle through the
+    shallower tile rings of the wide rows many times. Zero-length docs must
+    score exactly 0; five launches must agree bit for bit."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.ops.quant import quantize_int4_groups
+    gen = torch.Generator(device=device).manual_seed(3)
+    cases = [(1, 64, 1037, 64, LQ), (9, 128, 515, 128, LQ),
+             (64, 64, 301, 16, LQ), (2, 64, 150, 256, 200),
+             (9, 128, 333, 256, LQ), (3, 64, 77, 128, 200),
+             (1, 192, 131, 64, LQ), (8, 64, 20_000, 256, LQ),
+             (9, 128, 20_011, 208, LQ), (8, 64, 20_000, 192, LQ)]
+    for b, doc_len, n, dim, lq in cases:
+        ends = INT4_EDGE_LENGTHS + (
+            (65, 127, 128) if doc_len >= 128 else ()) + (
+            (129, 191, 192) if doc_len >= 192 else ())
+        lengths = torch.tensor([ends[i % len(ends)] for i in range(n)],
+                               dtype=torch.int32, device=device)
+        x = torch.randn(n, doc_len, dim, generator=gen, device=device)
+        x = x / x.norm(dim=-1, keepdim=True)
+        x *= (torch.arange(doc_len, device=device)[None, :]
+              < lengths[:, None])[..., None]
+        emb, gs = quantize_int4_groups(x, lengths)
+        q = torch.randn(b, lq, dim, generator=gen, device=device)
+        q = q / q.norm(dim=-1, keepdim=True)
+        q[:, lq - 3:] = 0.0
+        out = scan("maxsim_int4_group", "kernel", q, emb, None, gs, lengths,
+                   doc_len)
+        for _ in range(4):
+            if not torch.equal(out, scan("maxsim_int4_group", "kernel", q,
+                                         emb, None, gs, lengths, doc_len)):
+                raise AssertionError("maxsim_int4_group: launches differ")
+        torch.cuda.synchronize()
+        ref = scan("maxsim_int4_group", "plain", q, emb, None, gs, lengths,
+                   doc_len)
+        err, same = compare(out, ref, min(100, n))
+        zero = lengths == 0
+        if not (out[:, zero] == 0).all():
+            raise AssertionError("maxsim_int4_group: zero-length docs must "
+                                 "score exactly 0")
+        log(f"kernel maxsim_int4_group edges B={b} Lq={lq} L={doc_len} N={n}"
+            f" D={dim} lengths {ends}: max_abs_err={err:.3e} "
+            f"top100_ids_equal={same}, 5 launches bit-equal")
+
+
+def int4_launcher(csrc, q, emb, gs, lengths, doc_len):
+    """-> run() that launches the int4 kernel built from ``csrc`` (the
+    port's own, or an ``--int4-variant``) on these operands; uncounted."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
+    b, lq, d = q.shape
+    n = gs.shape[-1]
+    qb = q.to(torch.bfloat16).contiguous()
+    lengths = lengths.to(torch.int32)
+
+    def run():
+        out = torch.empty((b, n), dtype=torch.float32, device=q.device)
+        ms._launch("maxsim_int4_group", "maxsim_int4_group_launch", q.device,
+                   (qb, emb, gs, lengths, out), (b, lq, d, n, doc_len),
+                   csrc=csrc)
+        return out
+    return run
+
+
+def phase_int4_stress(device, variants):
+    """The int4 kernel N_STRESS times on a small index that stays in L2
+    (B=8, Lq=32, L=128, N=3001, D=128), where bulk copies land fast: each
+    launch must agree with the plain version and bit for bit with the
+    first. Without a proxy fence between a warp's reads of a packed stage
+    and the bulk copy that refills it, most launches here scored wrong.
+    Each ``--int4-variant`` takes the same launches; its failures are
+    counted, not fatal."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.ops import _build
+    from hybrid_rag_colbertv2_tpu_torch.ops.quant import quantize_int4_groups
+    gen = torch.Generator(device=device).manual_seed(4)
+    b, doc_len, n, dim = 8, 128, 3001, 128
+    lengths = torch.randint(doc_len // 2, doc_len + 1, (n,), generator=gen,
+                            device=device, dtype=torch.int32)
+    x = torch.randn(n, doc_len, dim, generator=gen, device=device)
+    x = x / x.norm(dim=-1, keepdim=True)
+    x *= (torch.arange(doc_len, device=device)[None, :]
+          < lengths[:, None])[..., None]
+    emb, gs = quantize_int4_groups(x, lengths)
+    q = torch.randn(b, LQ, dim, generator=gen, device=device)
+    q = q / q.norm(dim=-1, keepdim=True)
+    ref = scan("maxsim_int4_group", "plain", q, emb, None, gs, lengths,
+               doc_len)
+    for name, csrc in (("port", _build.CSRC), *variants):
+        run = int4_launcher(csrc, q, emb, gs, lengths, doc_len)
+        first = run()
+        wrong = differ = 0
+        for _ in range(N_STRESS):
+            out = run()
+            wrong += not torch.allclose(out, ref, rtol=RTOL, atol=ATOL)
+            differ += not torch.equal(out, first)
+        msg = (f"{N_STRESS} launches at B={b} L={doc_len} N={n} D={dim}: "
+               f"{wrong} disagree with the plain version, {differ} differ "
+               "from the first")
+        if name != "port":
+            log(f"int4 variant {name} stress: {msg}")
+            continue
+        err, _ = compare(first, ref, 100)
+        if wrong or differ:
+            raise AssertionError(f"maxsim_int4_group stress: {msg}")
+        log(f"kernel maxsim_int4_group stress: {msg}; max_abs_err={err:.3e}")
+
+
 def phase_float_skip(device):
     """The float kernels skip rows by content: each holds its plain
     version on docs whose last nonzero row sits at every offset around
@@ -468,8 +601,9 @@ def check_dense_top100(layout, path, encoder, device):
     return q_emb
 
 
-def kernel_numbers(kernel, path, q_emb, peaks):
-    """Kernel vs plain at the main shape, their times by CUDA events, the
+def kernel_numbers(kernel, path, q_emb, peaks, variants=()):
+    """Kernel vs plain at the main shape (N_REPEATS launches bit-equal),
+    their times by CUDA events, the
     bf16 (fp32 for the fp32 kernel) matmul of the product alone where it
     fits in memory, and the bound from this run's inputs: products only
     for valid rows (the rest are masked or copies); bytes of what the
@@ -481,11 +615,13 @@ def kernel_numbers(kernel, path, q_emb, peaks):
     args = (q_emb, dense.emb_flat, dense.scales, dense.doc_scales,
             dense.doc_lengths, dense.doc_len)
     full = scan(kernel, "kernel", *args)
-    torch.cuda.synchronize()
-    if not torch.equal(full, scan(kernel, "kernel", *args)):
-        raise AssertionError(f"{kernel}: two launches differ")
+    for _ in range(N_REPEATS - 1):
+        if not torch.equal(full, scan(kernel, "kernel", *args)):
+            raise AssertionError(f"{kernel}: launches differ")
     ref = scan(kernel, "plain", *args)
     err, same = compare(full, ref, 100)
+    if variants:
+        int4_variant_numbers(variants, dense, q_emb, ref)
     del full, ref
     k_ms = cuda_ms(lambda: scan(kernel, "kernel", *args), 20)
     p_ms = cuda_ms(lambda: scan(kernel, "plain", *args), 3, warmup=1)
@@ -521,8 +657,8 @@ def kernel_numbers(kernel, path, q_emb, peaks):
     t_ops, t_bytes = flops / peak_ops * 1e3, nbytes / peaks[1] * 1e3
     bound = max(t_ops, t_bytes)
     log(f"{kernel} at B={b} Lq={lq} N={n_pad} L={doc_len} D={d}: "
-        f"max_abs_err={err:.3e} top100_ids_equal={same}, two launches "
-        f"bit-equal; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"max_abs_err={err:.3e} top100_ids_equal={same}, {N_REPEATS} "
+        f"launches bit-equal; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
         f"{bound:.3f} ms ({flops / 1e12:.3f} TFLOP at "
         f"{peak_ops / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB; "
         f"{valid_rows} of {rows} rows valid), matmul of the product alone "
@@ -531,9 +667,54 @@ def kernel_numbers(kernel, path, q_emb, peaks):
         f"{flops / k_ms * 1e3 / peak_ops:.1%} of the "
         f"{'fp32 FFMA' if layout == 'float32' else 'bf16 tensor'} peak; "
         f"time / bound {k_ms / bound:.2f}")
+    if layout == "int4-doc":   # its kernel multiplies every stored row
+        stored = 2.0 * b * lq * d * rows
+        log(f"{kernel}: {stored / k_ms / 1e9:.2f} TFLOP/s over all {rows} "
+            f"stored rows ({stored / 1e12:.3f} TFLOP), "
+            f"{stored / k_ms * 1e3 / peak_ops:.1%} of the bf16 tensor peak")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, matmul_only_ms=mm_ms)
+
+
+def int4_variant_numbers(variants, dense, q_emb, ref) -> None:
+    """Each ``--int4-variant`` build of ``maxsim_int4_group`` and the
+    port's own, on the main path's int4-doc index: held against the plain
+    version (a variant that disagrees is reported and not timed), then
+    timed by CUDA events over 20 launches, in two passes (in the order
+    given, then reversed). Its launches are not counted."""
+    from hybrid_rag_colbertv2_tpu_torch.ops import _build
+    runs = {}
+    for name, csrc in (("port", _build.CSRC), *variants):
+        run = int4_launcher(csrc, q_emb, dense.emb_flat, dense.doc_scales,
+                            dense.doc_lengths, dense.doc_len)
+        try:
+            err, _ = compare(run(), ref, 100)
+        except AssertionError as e:
+            log(f"int4 variant {name}: {e}; not timed")
+            continue
+        log(f"int4 variant {name}: agrees with the plain version, "
+            f"max_abs_err={err:.3e}")
+        runs[name] = run
+    times = {name: [] for name in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for name in order:
+            times[name].append(cuda_ms(runs[name], 20))
+    for name, ts in times.items():
+        log(f"int4 variant {name}: {' / '.join(f'{t:.3f}' for t in ts)} ms")
+
+
+def parse_variants(argv):
+    """``--int4-variant NAME=DIR`` pairs -> [(name, resolved DIR)]"""
+    out = []
+    for flag, val in zip(argv, argv[1:]):
+        if flag == "--int4-variant":
+            name, _, d = val.partition("=")
+            if not (Path(d) / "maxsim_int4_group.cu").is_file():
+                raise SystemExit(f"--int4-variant {val}: no "
+                                 "maxsim_int4_group.cu there")
+            out.append((name, Path(d).resolve()))
+    return out
 
 
 def main() -> int:
@@ -546,6 +727,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    from concurrent.futures import ThreadPoolExecutor
     from hybrid_rag_colbertv2_tpu_torch.ops import _build
     from hybrid_rag_colbertv2_tpu_torch.utils.device import (
         set_fp32_matmul_exact)
@@ -556,11 +738,25 @@ def main() -> int:
     peaks = peaks_for(name)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda}")
 
+    variants = parse_variants(sys.argv[1:])
+
     # -- phase 1: build the kernels from csrc/, one nvcc each, at once ---
     t0 = time.perf_counter()
     sources = sorted({KERNELS[k][3][:-3] for k in KERNELS})
-    libs = _build.build_many(sources)
-    log(f"build: {', '.join(sources)} {time.perf_counter() - t0:.1f}s")
+    with ThreadPoolExecutor(1 + len(variants)) as pool:
+        built = [pool.submit(_build.build_many, ["maxsim_int4_group"], d)
+                 for _, d in variants]
+        libs = _build.build_many(sources)
+        for (vname, d), job in zip(list(variants), built):
+            try:
+                libs[f"int4 variant {vname}"] = job.result()[
+                    "maxsim_int4_group"]
+            except RuntimeError as e:              # a variant only
+                log(f"int4 variant {vname}: {str(e)[:2000]}")
+                variants.remove((vname, d))
+    log(f"build: {', '.join(sources)}"
+        f"{f' and {len(variants)} int4 variants' if variants else ''} "
+        f"{time.perf_counter() - t0:.1f}s")
     for src, lib in libs.items():
         ptxas = lib.with_suffix(".log").read_text()
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
@@ -570,6 +766,8 @@ def main() -> int:
 
     # -- phase 2: each kernel vs its plain version at small shapes ------
     phase_kernel_small(device)
+    phase_int4_edges(device)
+    phase_int4_stress(device, variants)
     phase_float_skip(device)
     if "--kernels-only" in sys.argv[1:]:
         log("kernels-only: stopping after the kernel checks")
@@ -617,7 +815,9 @@ def main() -> int:
             f"{BATCH}, {n_docs} chunks, host clock, {len(ts)} calls)")
     rows = []
     for kernel, (layout, _, _, src, line) in KERNELS.items():
-        nums = kernel_numbers(kernel, paths[layout], q_embs[layout], peaks)
+        nums = kernel_numbers(
+            kernel, paths[layout], q_embs[layout], peaks,
+            variants if kernel == "maxsim_int4_group" else ())
         rows.append({"name": kernel, "route": "cuda",
                      "source": f"{PORT}/csrc/{src}",
                      "replaces": f"{JAX_MAXSIM}:{line}",

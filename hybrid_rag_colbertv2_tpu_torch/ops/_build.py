@@ -20,7 +20,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,7 +30,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[Path, str], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -73,19 +73,21 @@ def library_path(name: str, csrc: Path = CSRC,
     return build_dir / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_many(names: Sequence[str]) -> Dict[str, Path]:
-    """Compile each ``csrc/<name>.cu`` whose hashed library is missing,
-    one ``nvcc`` per source, all started together. ``ptxas -v`` output
+def build_many(names: Sequence[str], csrc: Path = CSRC) -> Dict[str, Path]:
+    """Compile each ``<csrc>/<name>.cu`` whose hashed library is missing,
+    one ``nvcc`` per source, all started together. ``csrc`` is the port's
+    own by default; another directory laid out like it (a version of a
+    kernel to compare) builds the same way. ``ptxas -v`` output
     (registers, shared memory, spills) is kept beside each library as
     ``.log``. -> {name: library path}"""
-    outs = {name: library_path(name) for name in names}
+    outs = {name: library_path(name, csrc) for name in names}
     procs = {}
     for name, out in outs.items():
         if out.exists() or name in procs:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     failed = []
@@ -102,16 +104,12 @@ def build_many(names: Sequence[str]) -> Dict[str, Path]:
     return outs
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
-    return build_many([name])[name]
-
-
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built if needed."""
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (from ``csrc``), built if
+    needed."""
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get((csrc, name))
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            _loaded[name] = lib
+            lib = ctypes.CDLL(str(build_many([name], csrc)[name]))
+            _loaded[(csrc, name)] = lib
         return lib

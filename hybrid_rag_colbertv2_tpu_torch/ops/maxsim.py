@@ -15,7 +15,8 @@ hand-written CUDA kernel that replaces its Pallas kernel:
   ``maxsim_scores_int8_doc``  int8, doc scales   csrc/maxsim_int8_doc.cu
                               (``_maxsim_int8_doc_kernel``)
   ``maxsim_scores_int4_doc``  packed int4 pairs, csrc/maxsim_int4_group.cu
-                              group scales       (``_maxsim_int4_group_kernel``)
+                              group scales       (``_maxsim_int4_group_kernel``;
+                                                 wgmma, on csrc/sm90.cuh)
 
 Each has its plain PyTorch version beside it (``*_reference``) and a
 ``launches`` count. CUDA tensors launch the kernel on the current stream
@@ -270,10 +271,12 @@ def _check_int4_operands(queries, emb_flat, group_scales, lengths, doc_len):
                      ("doc_lengths", lengths, torch.int32, (n,))))
 
 
-def _launch(lib: str, fn: str, device: torch.device, ptrs, ints) -> None:
-    """Call ``fn`` of library ``lib`` as fn(*ptrs, *ints, stream) on the
-    current stream of ``device``; raise on a nonzero CUDA error."""
-    f = getattr(_build.load(lib), fn)
+def _launch(lib: str, fn: str, device: torch.device, ptrs, ints,
+            csrc=_build.CSRC) -> None:
+    """Call ``fn`` of library ``lib`` (built from ``csrc``) as
+    fn(*ptrs, *ints, stream) on the current stream of ``device``; raise on
+    a nonzero CUDA error."""
+    f = getattr(_build.load(lib, csrc), fn)
     f.restype = ctypes.c_int
     f.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int] * len(ints)
                   + [ctypes.c_void_p])
@@ -373,14 +376,18 @@ def maxsim_scores_int4_doc(
     queries: torch.Tensor,      # (B, Lq, D) float/bf16
     emb_flat: torch.Tensor,     # (N * L/2, D) int8 nibble-packed pairs
     group_scales: torch.Tensor,  # (G, N) float32, doc axis minor
-    doc_lengths: torch.Tensor,  # (N,) int32 — the kernel skips rows past it
+    doc_lengths: torch.Tensor,  # (N,) int32 — chunks past it are skipped
     *,
     doc_len: int,
 ) -> torch.Tensor:              # (B, N) float32
     """Full int4-doc scan (csrc/maxsim_int4_group.cu on the card), with
     G = L / 8 token groups (``ops/quant.py::int4_group_size`` for
-    L % 64 == 0). Rows past each doc's length are copies of valid rows
-    and are skipped."""
+    L % 64 == 0). The kernel multiplies every stored row of each 64-row
+    chunk that holds a valid row, as the plain version does: the padding
+    rows there copy valid rows of their group, and a fully padded group
+    carries group 0's scale and row 0, so the result is exact. Chunks
+    wholly past a doc's length are skipped, and a zero-length doc scores
+    exactly 0."""
     if not _on_card(emb_flat):
         return maxsim_scores_int4_doc_reference(
             queries, emb_flat, group_scales, doc_lengths, doc_len=doc_len)

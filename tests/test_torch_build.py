@@ -32,8 +32,23 @@ def test_library_key_covers_included_headers(tmp_path):
 
 
 def test_every_kernel_source_hashes_its_header():
-    """The four kernel sources include the shared mma header."""
-    for name in ("maxsim", "maxsim_int8", "maxsim_int8_doc",
-                 "maxsim_int4_group"):
+    """The mma.sync scans include the shared mma header; the wgmma int4
+    scan includes the Hopper wrappers header."""
+    for name, header in (("maxsim", "maxsim_mma.cuh"),
+                         ("maxsim_int8", "maxsim_mma.cuh"),
+                         ("maxsim_int8_doc", "maxsim_mma.cuh"),
+                         ("maxsim_int4_group", "sm90.cuh")):
         names = [p.name for p in _build._sources(name, _build.CSRC)]
-        assert names == [f"{name}.cu", "maxsim_mma.cuh"]
+        assert names == [f"{name}.cu", header]
+
+
+def test_copy_of_csrc_shares_the_key_until_edited(tmp_path):
+    """A kernel version in another directory laid out like ``csrc/``
+    (``chip_smoke.py --int4-variant``) gets the port's library only while
+    its source and headers are byte-equal to the port's."""
+    name = "maxsim_int4_group"
+    for path in _build._sources(name, _build.CSRC):
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    assert _build.library_path(name, tmp_path) == _build.library_path(name)
+    (tmp_path / "sm90.cuh").write_text("// another header\n")
+    assert _build.library_path(name, tmp_path) != _build.library_path(name)

@@ -258,9 +258,16 @@ def test_int8_doc_plain_version_matches_pallas(b, doc_len, n, dim):
 
 
 @pytest.mark.parametrize("b,doc_len,n,dim", [
-    (1, 16, 37, 32), (3, 32, 64, 32), (3, 12, 21, 16)])
+    (1, 16, 37, 32), (3, 32, 64, 32), (3, 12, 21, 16),
+    # the CUDA kernel's own shapes: whole 64-row chunks, every stored row
+    # multiplied, so fully padded groups must not change the score
+    (2, 64, 37, 64), (1, 128, 37, 64)])
 def test_int4_doc_plain_version_matches_pallas(b, doc_len, n, dim):
     flat, gs, lengths = _doc_layout(7 * b + n, n, doc_len, dim, int4=True)
+    if doc_len % 64 == 0:
+        group = doc_len // gs.shape[0]
+        assert lengths[4] == 1 and (
+            (lengths > 0) & (lengths <= doc_len - group)).sum() >= 5
     q = _queries(n, b, 8, dim, pad_rows=2)
     js = np.array(jm.maxsim_scores_int4_doc(
         jnp.asarray(q), jnp.asarray(flat), jnp.asarray(gs),
