@@ -3,15 +3,17 @@
 
     python3 chip_smoke.py                 # exits 0 on success; one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
-    python3 chip_smoke.py --int4-variant NAME=DIR ...  # + time other builds
+    python3 chip_smoke.py --variant KERNEL:NAME=DIR ...  # + time other builds
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
 JAX: builds every CUDA kernel from ``csrc/`` (one nvcc per source, all at
 once), holds each kernel against its plain PyTorch version on the card
-(the float kernels also on docs with nonzero rows past their length,
-which their content mask must score; the int4 kernel also at doc lengths
-on every 8-row group and 64-row chunk edge, and 300 times over on an
-index that stays in L2), then serves batches of 8
+at doc lengths L = 32, 64, 96, 128, 160 and 256 (every multiple of 32
+is taken: a doc's last 64-row chunk is then 32 rows), the float kernels
+also on docs with nonzero rows past their length, which their content
+mask must score; the int4 kernel also at doc lengths on every 8-row
+group and 32-row half-chunk edge; the int8 and int4 kernels 300 times
+over on an index that stays in L2), then serves batches of 8
 queries through ``HybridRetriever.retrieve_batch`` with the ``small``
 encoder preset (random weights from a seed), on both
 dense routes of every flat index layout:
@@ -36,12 +38,15 @@ line, the card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
-``--int4-variant NAME=DIR`` (repeatable) names a directory laid out like
-``csrc/`` that holds another version of ``maxsim_int4_group.cu`` and the
-headers it includes (say, an unpacked parent commit's ``csrc/``). Each is
-built beside the port's kernels, takes the stress launches (its failures
+``--variant KERNEL:NAME=DIR`` (repeatable) names a directory laid out
+like ``csrc/`` that holds another version of KERNEL's source (a key of
+``KERNELS``: ``maxsim_int8:parent=build/parent/.../csrc`` names that
+directory's ``maxsim_int8.cu``) and the headers it includes. Each is
+built beside the port's kernels (a failed build is reported, not fatal),
+takes the stress launches where its kernel has them (its failures
 counted, not fatal), is held against the plain version on the main
-path's int4-doc index and is timed there beside the port's own build.
+path's index of its layout and is timed there beside the port's own
+build, in two passes.
 """
 
 from __future__ import annotations
@@ -66,8 +71,9 @@ N_TIMED_CALLS = 40
 # launches of each kernel at the main shape that must agree bit for bit
 # (the first is held against the plain version)
 N_REPEATS = 50
-# launches of the int4 kernel on a small index that stays in L2
+# launches of each bulk-copy kernel on a small index that stays in L2
 N_STRESS = 300
+STRESS_KERNELS = ("maxsim_int8", "maxsim_int4_group")
 # kernel vs plain version: fp32 sums in other orders (products are exact)
 RTOL, ATOL = 1e-5, 1e-3
 # published dense peaks: (bf16 tensor FLOP/s, HBM bytes/s, fp32 FLOP/s on
@@ -77,7 +83,8 @@ PEAKS = {"H100 PCIe": (756e12, 2.0e12, 51e12),
          "H200": (989e12, 4.8e12, 67e12),
          "H100": (989e12, 3.35e12, 67e12)}
 
-# name -> (index layout, wrapper, plain version, source, Pallas kernel line)
+# name -> (index layout, wrapper, plain version, source, Pallas kernel line);
+# each source's C entry point is <name>_launch
 KERNELS = {
     "maxsim_int8": ("int8", "maxsim_scores_int8",
                     "maxsim_scores_int8_reference", "maxsim_int8.cu", 231),
@@ -254,16 +261,26 @@ def scan(kernel: str, which: str, q, emb, scales, doc_scales, lengths,
 
 def phase_kernel_small(device):
     """Every kernel vs its plain version at small shapes: ragged N,
-    zero-length docs, a zeroed valid row, B in {1, 8, 64}, L in {64, 128,
-    256}; the float kernels also at D = 256 (B = 9: the fp32 kernel's
-    query spread over blocks; Lq = 200: in column segments) and D = 16."""
+    zero-length docs, a zeroed valid row, B in {1, 8, 64}, L in {32, 64,
+    96, 128, 160, 256} (at 32, 96 and 160 a doc's last chunk is 32 rows);
+    the float and int8 kernels also at D = 256 (B = 9: the fp32 kernel's
+    query spread over blocks; Lq = 200: in column segments) and D = 16;
+    the int8 kernel also at N = 20,000 with D in {192, 208, 256}, a few
+    hundred docs per block, so that its transform warps cycle through the
+    shallower rings of the wide rows many times."""
     import torch
     gen = torch.Generator(device=device).manual_seed(1)
-    every, floats = tuple(KERNELS), FLOAT_KERNELS
+    every, wide = tuple(KERNELS), FLOAT_KERNELS + ("maxsim_int8",)
     cases = [(1, 64, 1037, 128, LQ, every), (8, 128, 3001, 128, LQ, every),
              (64, 256, 515, 128, LQ, every), (9, 128, 700, 128, LQ, every),
-             (3, 64, 77, 32, LQ, every), (9, 128, 300, 256, LQ, floats),
-             (2, 64, 150, 256, 200, floats), (5, 64, 333, 16, LQ, floats)]
+             (3, 64, 77, 32, LQ, every), (8, 32, 1001, 128, LQ, every),
+             (9, 96, 515, 128, LQ, every), (3, 160, 301, 64, LQ, every),
+             (64, 96, 99, 32, LQ, every), (9, 128, 300, 256, LQ, wide),
+             (2, 64, 150, 256, 200, wide), (2, 96, 151, 256, 200, wide),
+             (5, 64, 333, 16, LQ, wide), (5, 160, 133, 16, LQ, wide),
+             (8, 96, 20_000, 256, LQ, ("maxsim_int8",)),
+             (9, 128, 20_011, 208, LQ, ("maxsim_int8",)),
+             (8, 32, 20_000, 192, LQ, ("maxsim_int8",))]
     for b, doc_len, n, dim, lq, kernels in cases:
         zero = (0, n // 2)
         lengths, stores = random_layouts(
@@ -293,13 +310,15 @@ def phase_kernel_small(device):
                 f"max_abs_err={err:.3e} top100_ids_equal={same}")
 
 
-INT4_EDGE_LENGTHS = (0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 56, 63, 64)
+INT4_EDGE_LENGTHS = (0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 56, 63, 64, 65,
+                     95, 96, 97, 127, 128, 129, 159, 160, 161, 191, 192)
 
 
 def phase_int4_edges(device):
     """maxsim_int4_group vs its plain version where its design has edges:
-    doc lengths at every 8-row group boundary and 64-row chunk edge
-    (partly and fully padded groups), N a multiple of neither 4 nor the
+    doc lengths at every 8-row group boundary, 32-row half chunk and
+    64-row chunk edge (partly and fully padded groups; at L = 32, 96 and
+    160 a doc's last chunk is 32 rows), N a multiple of neither 4 nor the
     docs per block, D in {16, 64, 128, 256}, B in {1, 9, 64} (query rows
     ending mid m-tile, several column tiles) and Lq = 200 (column
     segments at D = 256); and N = 20,000 at D in {192, 208, 256}, a few
@@ -313,11 +332,12 @@ def phase_int4_edges(device):
              (64, 64, 301, 16, LQ), (2, 64, 150, 256, 200),
              (9, 128, 333, 256, LQ), (3, 64, 77, 128, 200),
              (1, 192, 131, 64, LQ), (8, 64, 20_000, 256, LQ),
-             (9, 128, 20_011, 208, LQ), (8, 64, 20_000, 192, LQ)]
+             (9, 128, 20_011, 208, LQ), (8, 64, 20_000, 192, LQ),
+             (8, 32, 1001, 128, LQ), (9, 96, 515, 128, LQ),
+             (3, 160, 333, 64, LQ), (2, 96, 150, 256, 200),
+             (8, 160, 20_000, 208, LQ)]
     for b, doc_len, n, dim, lq in cases:
-        ends = INT4_EDGE_LENGTHS + (
-            (65, 127, 128) if doc_len >= 128 else ()) + (
-            (129, 191, 192) if doc_len >= 192 else ())
+        ends = tuple(e for e in INT4_EDGE_LENGTHS if e <= doc_len)
         lengths = torch.tensor([ends[i % len(ends)] for i in range(n)],
                                dtype=torch.int32, device=device)
         x = torch.randn(n, doc_len, dim, generator=gen, device=device)
@@ -347,67 +367,88 @@ def phase_int4_edges(device):
             f"top100_ids_equal={same}, 5 launches bit-equal")
 
 
-def int4_launcher(csrc, q, emb, gs, lengths, doc_len):
-    """-> run() that launches the int4 kernel built from ``csrc`` (the
-    port's own, or an ``--int4-variant``) on these operands; uncounted."""
+def kernel_launcher(kernel, csrc, q, emb, scales, doc_scales, lengths,
+                    doc_len):
+    """-> run() that launches ``kernel`` built from ``csrc`` (the port's
+    own, or a ``--variant``) on one index's operands, as its wrapper
+    does; uncounted."""
     import torch
     from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
+    layout, _, _, source, _ = KERNELS[kernel]
     b, lq, d = q.shape
-    n = gs.shape[-1]
-    qb = q.to(torch.bfloat16).contiguous()
+    n = lengths.shape[0]
+    qk = q.to(emb.dtype if layout in ("bfloat16", "float32")
+              else torch.bfloat16).contiguous()
     lengths = lengths.to(torch.int32)
+    operands = {"int8": (scales,), "int8-doc": (doc_scales, lengths),
+                "int4-doc": (doc_scales, lengths)}.get(layout, ())
 
     def run():
         out = torch.empty((b, n), dtype=torch.float32, device=q.device)
-        ms._launch("maxsim_int4_group", "maxsim_int4_group_launch", q.device,
-                   (qb, emb, gs, lengths, out), (b, lq, d, n, doc_len),
+        ms._launch(source[:-3], f"{kernel}_launch", q.device,
+                   (qk, emb, *operands, out), (b, lq, d, n, doc_len),
                    csrc=csrc)
         return out
     return run
 
 
-def phase_int4_stress(device, variants):
-    """The int4 kernel N_STRESS times on a small index that stays in L2
-    (B=8, Lq=32, L=128, N=3001, D=128), where bulk copies land fast: each
-    launch must agree with the plain version and bit for bit with the
-    first. Without a proxy fence between a warp's reads of a packed stage
-    and the bulk copy that refills it, most launches here scored wrong.
-    Each ``--int4-variant`` takes the same launches; its failures are
-    counted, not fatal."""
+def stress_index(kernel, gen, device, b, doc_len, n, dim):
+    """The stress phase's index of ``kernel``'s layout and its queries.
+    -> (q, emb, scales, doc_scales, lengths)"""
     import torch
-    from hybrid_rag_colbertv2_tpu_torch.ops import _build
-    from hybrid_rag_colbertv2_tpu_torch.ops.quant import quantize_int4_groups
-    gen = torch.Generator(device=device).manual_seed(4)
-    b, doc_len, n, dim = 8, 128, 3001, 128
+    from hybrid_rag_colbertv2_tpu_torch.ops.quant import (
+        quantize_int4_groups, quantize_int8_rows)
     lengths = torch.randint(doc_len // 2, doc_len + 1, (n,), generator=gen,
                             device=device, dtype=torch.int32)
     x = torch.randn(n, doc_len, dim, generator=gen, device=device)
     x = x / x.norm(dim=-1, keepdim=True)
     x *= (torch.arange(doc_len, device=device)[None, :]
           < lengths[:, None])[..., None]
-    emb, gs = quantize_int4_groups(x, lengths)
     q = torch.randn(b, LQ, dim, generator=gen, device=device)
     q = q / q.norm(dim=-1, keepdim=True)
-    ref = scan("maxsim_int4_group", "plain", q, emb, None, gs, lengths,
-               doc_len)
-    for name, csrc in (("port", _build.CSRC), *variants):
-        run = int4_launcher(csrc, q, emb, gs, lengths, doc_len)
-        first = run()
-        wrong = differ = 0
-        for _ in range(N_STRESS):
-            out = run()
-            wrong += not torch.allclose(out, ref, rtol=RTOL, atol=ATOL)
-            differ += not torch.equal(out, first)
-        msg = (f"{N_STRESS} launches at B={b} L={doc_len} N={n} D={dim}: "
-               f"{wrong} disagree with the plain version, {differ} differ "
-               "from the first")
-        if name != "port":
-            log(f"int4 variant {name} stress: {msg}")
-            continue
-        err, _ = compare(first, ref, 100)
-        if wrong or differ:
-            raise AssertionError(f"maxsim_int4_group stress: {msg}")
-        log(f"kernel maxsim_int4_group stress: {msg}; max_abs_err={err:.3e}")
+    if kernel == "maxsim_int8":
+        emb, scales = quantize_int8_rows(x.reshape(-1, dim))
+        return q, emb, scales, None, lengths
+    emb, gs = quantize_int4_groups(x, lengths)
+    return q, emb, None, gs, lengths
+
+
+def phase_stress(device, variants):
+    """Each bulk-copy kernel (``STRESS_KERNELS``) N_STRESS times on a
+    small index that stays in L2 (B=8, Lq=32, L=128, N=3001, D=128), where
+    bulk copies land fast: each launch must agree with the plain version
+    and bit for bit with the first. Without a proxy fence between a warp's
+    reads of a copied stage and the bulk copy that refills it, most int4
+    launches here scored wrong. Each ``--variant`` of these kernels takes
+    the same launches; its failures are counted, not fatal."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.ops import _build
+    gen = torch.Generator(device=device).manual_seed(4)
+    b, doc_len, n, dim = 8, 128, 3001, 128
+    for kernel in STRESS_KERNELS:
+        q, emb, scales, doc_scales, lengths = stress_index(
+            kernel, gen, device, b, doc_len, n, dim)
+        ref = scan(kernel, "plain", q, emb, scales, doc_scales, lengths,
+                   doc_len)
+        for name, csrc in (("port", _build.CSRC), *variants.get(kernel, ())):
+            run = kernel_launcher(kernel, csrc, q, emb, scales, doc_scales,
+                                  lengths, doc_len)
+            first = run()
+            wrong = differ = 0
+            for _ in range(N_STRESS):
+                out = run()
+                wrong += not torch.allclose(out, ref, rtol=RTOL, atol=ATOL)
+                differ += not torch.equal(out, first)
+            msg = (f"{N_STRESS} launches at B={b} L={doc_len} N={n} D={dim}:"
+                   f" {wrong} disagree with the plain version, {differ} "
+                   "differ from the first")
+            if name != "port":
+                log(f"{kernel} variant {name} stress: {msg}")
+                continue
+            err, _ = compare(first, ref, 100)
+            if wrong or differ:
+                raise AssertionError(f"{kernel} stress: {msg}")
+            log(f"kernel {kernel} stress: {msg}; max_abs_err={err:.3e}")
 
 
 def phase_float_skip(device):
@@ -621,7 +662,7 @@ def kernel_numbers(kernel, path, q_emb, peaks, variants=()):
     ref = scan(kernel, "plain", *args)
     err, same = compare(full, ref, 100)
     if variants:
-        int4_variant_numbers(variants, dense, q_emb, ref)
+        variant_numbers(kernel, variants, dense, q_emb, ref)
     del full, ref
     k_ms = cuda_ms(lambda: scan(kernel, "kernel", *args), 20)
     p_ms = cuda_ms(lambda: scan(kernel, "plain", *args), 3, warmup=1)
@@ -667,33 +708,42 @@ def kernel_numbers(kernel, path, q_emb, peaks, variants=()):
         f"{flops / k_ms * 1e3 / peak_ops:.1%} of the "
         f"{'fp32 FFMA' if layout == 'float32' else 'bf16 tensor'} peak; "
         f"time / bound {k_ms / bound:.2f}")
-    if layout == "int4-doc":   # its kernel multiplies every stored row
-        stored = 2.0 * b * lq * d * rows
-        log(f"{kernel}: {stored / k_ms / 1e9:.2f} TFLOP/s over all {rows} "
-            f"stored rows ({stored / 1e12:.3f} TFLOP), "
-            f"{stored / k_ms * 1e3 / peak_ops:.1%} of the bf16 tensor peak")
+    if layout in ("int8", "int4-doc"):
+        # these kernels multiply every stored row of a 64-row chunk that
+        # holds a valid row (int8: a nonzero scale)
+        if layout == "int8":
+            live = (dense.scales.reshape(-1, 64) > 0).any(dim=1)
+            stored_rows = int(live.sum()) * 64
+        else:
+            stored_rows = rows
+        stored = 2.0 * b * lq * d * stored_rows
+        log(f"{kernel}: {stored / k_ms / 1e9:.2f} TFLOP/s over the "
+            f"{stored_rows} stored rows of live chunks ({stored / 1e12:.3f} "
+            f"TFLOP), {stored / k_ms * 1e3 / peak_ops:.1%} of the bf16 "
+            "tensor peak")
     return dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=bound,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 library_ms=None, matmul_only_ms=mm_ms)
 
 
-def int4_variant_numbers(variants, dense, q_emb, ref) -> None:
-    """Each ``--int4-variant`` build of ``maxsim_int4_group`` and the
-    port's own, on the main path's int4-doc index: held against the plain
-    version (a variant that disagrees is reported and not timed), then
-    timed by CUDA events over 20 launches, in two passes (in the order
-    given, then reversed). Its launches are not counted."""
+def variant_numbers(kernel, variants, dense, q_emb, ref) -> None:
+    """Each ``--variant`` build of ``kernel`` and the port's own, on the
+    main path's index of its layout: held against the plain version (a
+    variant that disagrees is reported and not timed), then timed by CUDA
+    events over 20 launches, in two passes (in the order given, then
+    reversed). Its launches are not counted."""
     from hybrid_rag_colbertv2_tpu_torch.ops import _build
     runs = {}
     for name, csrc in (("port", _build.CSRC), *variants):
-        run = int4_launcher(csrc, q_emb, dense.emb_flat, dense.doc_scales,
-                            dense.doc_lengths, dense.doc_len)
+        run = kernel_launcher(kernel, csrc, q_emb, dense.emb_flat,
+                              dense.scales, dense.doc_scales,
+                              dense.doc_lengths, dense.doc_len)
         try:
             err, _ = compare(run(), ref, 100)
         except AssertionError as e:
-            log(f"int4 variant {name}: {e}; not timed")
+            log(f"{kernel} variant {name}: {e}; not timed")
             continue
-        log(f"int4 variant {name}: agrees with the plain version, "
+        log(f"{kernel} variant {name}: agrees with the plain version, "
             f"max_abs_err={err:.3e}")
         runs[name] = run
     times = {name: [] for name in runs}
@@ -701,19 +751,23 @@ def int4_variant_numbers(variants, dense, q_emb, ref) -> None:
         for name in order:
             times[name].append(cuda_ms(runs[name], 20))
     for name, ts in times.items():
-        log(f"int4 variant {name}: {' / '.join(f'{t:.3f}' for t in ts)} ms")
+        log(f"{kernel} variant {name}: {' / '.join(f'{t:.3f}' for t in ts)}"
+            " ms")
 
 
 def parse_variants(argv):
-    """``--int4-variant NAME=DIR`` pairs -> [(name, resolved DIR)]"""
-    out = []
+    """``--variant KERNEL:NAME=DIR`` flags -> {kernel: [(name, DIR)]}"""
+    out = {}
     for flag, val in zip(argv, argv[1:]):
-        if flag == "--int4-variant":
-            name, _, d = val.partition("=")
-            if not (Path(d) / "maxsim_int4_group.cu").is_file():
-                raise SystemExit(f"--int4-variant {val}: no "
-                                 "maxsim_int4_group.cu there")
-            out.append((name, Path(d).resolve()))
+        if flag == "--variant":
+            kernel, _, rest = val.partition(":")
+            name, _, d = rest.partition("=")
+            if kernel not in KERNELS:
+                raise SystemExit(f"--variant {val}: no kernel {kernel!r}")
+            source = KERNELS[kernel][3]
+            if not (Path(d) / source).is_file():
+                raise SystemExit(f"--variant {val}: no {source} there")
+            out.setdefault(kernel, []).append((name, Path(d).resolve()))
     return out
 
 
@@ -743,19 +797,21 @@ def main() -> int:
     # -- phase 1: build the kernels from csrc/, one nvcc each, at once ---
     t0 = time.perf_counter()
     sources = sorted({KERNELS[k][3][:-3] for k in KERNELS})
-    with ThreadPoolExecutor(1 + len(variants)) as pool:
-        built = [pool.submit(_build.build_many, ["maxsim_int4_group"], d)
-                 for _, d in variants]
+    jobs = [(k, vname, d) for k, vs in variants.items() for vname, d in vs]
+    with ThreadPoolExecutor(1 + len(jobs)) as pool:
+        built = [pool.submit(_build.build_many, [KERNELS[k][3][:-3]], d)
+                 for k, _, d in jobs]
         libs = _build.build_many(sources)
-        for (vname, d), job in zip(list(variants), built):
+        for (k, vname, d), job in zip(jobs, built):
             try:
-                libs[f"int4 variant {vname}"] = job.result()[
-                    "maxsim_int4_group"]
+                libs[f"{k} variant {vname}"] = job.result()[
+                    KERNELS[k][3][:-3]]
             except RuntimeError as e:              # a variant only
-                log(f"int4 variant {vname}: {str(e)[:2000]}")
-                variants.remove((vname, d))
+                log(f"{k} variant {vname}: {str(e)[:2000]}")
+                variants[k].remove((vname, d))
+    n_var = sum(map(len, variants.values()))
     log(f"build: {', '.join(sources)}"
-        f"{f' and {len(variants)} int4 variants' if variants else ''} "
+        f"{f' and {n_var} variants' if n_var else ''} "
         f"{time.perf_counter() - t0:.1f}s")
     for src, lib in libs.items():
         ptxas = lib.with_suffix(".log").read_text()
@@ -767,7 +823,7 @@ def main() -> int:
     # -- phase 2: each kernel vs its plain version at small shapes ------
     phase_kernel_small(device)
     phase_int4_edges(device)
-    phase_int4_stress(device, variants)
+    phase_stress(device, variants)
     phase_float_skip(device)
     if "--kernels-only" in sys.argv[1:]:
         log("kernels-only: stopping after the kernel checks")
@@ -817,7 +873,7 @@ def main() -> int:
     for kernel, (layout, _, _, src, line) in KERNELS.items():
         nums = kernel_numbers(
             kernel, paths[layout], q_embs[layout], peaks,
-            variants if kernel == "maxsim_int4_group" else ())
+            variants.get(kernel, ()))
         rows.append({"name": kernel, "route": "cuda",
                      "source": f"{PORT}/csrc/{src}",
                      "replaces": f"{JAX_MAXSIM}:{line}",

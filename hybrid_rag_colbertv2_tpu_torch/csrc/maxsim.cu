@@ -20,7 +20,7 @@
 // words (an OR across the 4 threads that stage the row), and 16-row tiles
 // that are wholly masked skip the mma.
 //
-// Takes any B, L a multiple of 64, D a multiple of 16 up to 256, Lq up to
+// Takes any B, L a multiple of 32, D a multiple of 16 up to 256, Lq up to
 // 256, and any N.
 
 #include "maxsim_mma.cuh"
@@ -42,7 +42,10 @@ struct Bf16Rows {
     static constexpr int kVecPerThread = (kVecPerRow + 3) / 4;
     uint4 pre[kVecPerThread];  // the chunk's rows, in flight
 
-    __device__ void fetch(const Operands& op, int, int doc_len, int doc, int chunk) {
+    // rows past `rows` (the absent half of a doc's last chunk) are staged
+    // as zeros, which the mask drops
+    __device__ void fetch(const Operands& op, int, int doc_len, int doc, int chunk,
+                          int rows) {
       const int row = threadIdx.x >> 2;
       const int part = threadIdx.x & 3;
       const uint4* src = reinterpret_cast<const uint4*>(
@@ -51,7 +54,7 @@ struct Bf16Rows {
 #pragma unroll
       for (int v = 0; v < kVecPerThread; ++v) {
         const int j = part + 4 * v;
-        if (j < kVecPerRow) pre[v] = src[j];
+        if (j < kVecPerRow) pre[v] = row < rows ? src[j] : make_uint4(0, 0, 0, 0);
       }
     }
 

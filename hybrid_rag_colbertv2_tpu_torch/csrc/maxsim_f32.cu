@@ -23,7 +23,9 @@
 //    warps per SM walks docs with a grid stride. Two blocks of 128
 //    columns per SM would not fit: each needs the 68 KB row ring beside
 //    its 66 KB query.
-//  * Rows arrive by cp.async.cg 16-byte copies of whole 64-row chunks,
+//  * Rows arrive by cp.async.cg 16-byte copies of whole 64-row chunks
+//    (32 rows in a doc's last chunk where L % 64 == 32: no row past the
+//    doc is read, and the stage's absent rows count as zero rows),
 //    row-major as stored (row stride D + 4 floats, so the 8 rows a warp
 //    reads at once hit distinct banks), into a 2-stage ring: the next
 //    chunk's copies fly while the block multiplies this one. Two
@@ -49,7 +51,7 @@
 //    per query sums its Lq maxima in ascending column order after the
 //    next barrier: no atomics, two launches give bit-equal outputs.
 //
-// Takes any B, L a multiple of 64, D a multiple of 16 up to 256, Lq up to
+// Takes any B, L a multiple of 32, D a multiple of 16 up to 256, Lq up to
 // 256, and any N. Where D is large, fewer query columns fit beside the
 // ring (64 at D = 256): the launch puts fewer queries in each block, and
 // a query wider than that is scanned in column segments, one launch each,
@@ -178,16 +180,16 @@ maxsim_f32_kernel(const float* __restrict__ q,    // (B*Lq, D)
     s_q[idx] = v;
   }
 
-  // a chunk is 64 * D / 4 16-byte pieces, contiguous in device memory;
+  // a chunk is rows * D / 4 16-byte pieces, contiguous in device memory;
   // this thread copies pieces p = threadIdx.x + 256 v, piece p of row r
   // landing at 4 (p + r) in its stage (each row padded by 4 floats)
-  const int pieces = kChunkRows * dim / 4;
   const int row_pieces = dim / 4;
   const int r_step = kThreads / row_pieces;
   const int p_step = kThreads - r_step * row_pieces;
   const int r_first = threadIdx.x / row_pieces;
   const int p_first = threadIdx.x - r_first * row_pieces;
-  auto copy_chunk = [&](const float* src, float* stage) {
+  auto copy_chunk = [&](const float* src, float* stage, int rows) {
+    const int pieces = rows * row_pieces;
     int r = r_first, pr = p_first;
     for (int p = threadIdx.x; p < pieces; p += kThreads) {
       cp_async16(stage + 4 * (p + r), src + 4 * p);
@@ -212,7 +214,9 @@ maxsim_f32_kernel(const float* __restrict__ q,    // (B*Lq, D)
     }
   };
 
-  const int chunks_per_doc = doc_len / kChunkRows;
+  // a doc's 64-row chunks, the last one 32 rows where L % 64 == 32
+  const int chunks_per_doc = (doc_len + kChunkRows - 1) / kChunkRows;
+  auto chunk_rows = [&](int c) { return min(kChunkRows, doc_len - c * kChunkRows); };
   const int chunk_floats = kChunkRows * dim;
   const float* a_lane = s_rows + lr * row_stride;
   const float* b_lane = s_q + warp * 32 + lc * 4;
@@ -225,7 +229,7 @@ maxsim_f32_kernel(const float* __restrict__ q,    // (B*Lq, D)
   int buf = 0;
   int pend_doc = -1;     // doc whose column maxima wait in s_col
   const float* src = emb + (size_t)doc * doc_len * dim;
-  copy_chunk(src, s_rows);
+  copy_chunk(src, s_rows, chunk_rows(0));
   while (doc < n_docs) {
     int next_doc = doc, next_chunk = chunk + 1;
     const float* next_src = src + chunk_floats;
@@ -241,15 +245,19 @@ maxsim_f32_kernel(const float* __restrict__ q,    // (B*Lq, D)
       write_sum(pend_doc);
       pend_doc = -1;
     }
-    if (next_doc < n_docs) copy_chunk(next_src, s_rows + (buf ^ 1) * stage_floats);
+    if (next_doc < n_docs)
+      copy_chunk(next_src, s_rows + (buf ^ 1) * stage_floats, chunk_rows(next_chunk));
 
     // row mask: 4 threads per row OR the row's staged words
     const float* rows = s_rows + buf * stage_floats;
     {
-      const uint4* w = reinterpret_cast<const uint4*>(rows + (threadIdx.x >> 2) * row_stride) +
+      const int row = threadIdx.x >> 2;
+      const uint4* w = reinterpret_cast<const uint4*>(rows + row * row_stride) +
                        (threadIdx.x & 3);
+      // the rows a 32-row chunk lacks count as zero rows
+      const int pieces = row < chunk_rows(chunk) ? row_pieces : 0;
       uint32_t nz = 0;
-      for (int v = 0; v < row_pieces; v += 4) {
+      for (int v = 0; v < pieces; v += 4) {
         const uint4 x = w[v];
         nz |= x.x | x.y | x.z | x.w;
       }
@@ -316,7 +324,7 @@ extern "C" int maxsim_f32_launch(const void* q, const void* emb, void* out,
                                  int batch, int lq, int dim, int n_docs,
                                  int doc_len, void* stream) {
   if (dim < 16 || dim > 256 || dim % 16 != 0 || doc_len <= 0 ||
-      doc_len % kChunkRows != 0 || lq <= 0 || lq > kCols || batch < 0 ||
+      doc_len % 32 != 0 || lq <= 0 || lq > kCols || batch < 0 ||
       n_docs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || n_docs == 0) return 0;

@@ -49,7 +49,12 @@
 //  * mbarriers hand tiles, packed stages and slots between the roles;
 //    there is no block-wide barrier after the set-up.
 //
-// Takes any B (grid.y tiles the queries), L a multiple of 64, D a multiple
+// A doc's last chunk is 32 rows where L % 64 == 32: its bulk copy moves 16
+// packed rows, and its 4 absent groups take a NaN scale, which the running
+// max (fmaxf drops a NaN operand) ignores whatever the tile's stale rows
+// hold; no row past the doc is read.
+//
+// Takes any B (grid.y tiles the queries), L a multiple of 32, D a multiple
 // of 16 up to 256 (above 128 one m-tile per warpgroup, 128 columns per
 // block), Lq up to 256 (a query wider than the block's columns is scanned
 // in column segments, one launch each, each segment's sum added in order)
@@ -148,7 +153,10 @@ __device__ __forceinline__ void unpack16(uint4 v, uint4 (&lo)[2], uint4 (&hi)[2]
   hi[1] = make_uint4(h[4], h[5], h[6], h[7]);
 }
 
-template <int KSTEPS>
+// kTail: L % 64 == 32, so a doc's last chunk is 32 rows. Without it every
+// chunk is 64 rows at compile time, and the copy and staging code is that
+// of whole chunks alone.
+template <int KSTEPS, bool kTail>
 __global__ void __launch_bounds__(kThreads, 1)
 maxsim_int4_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
                    const int8_t* __restrict__ emb,        // (N*L/2, D) packed
@@ -192,7 +200,12 @@ maxsim_int4_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
 
   const int q0 = blockIdx.y * queries_per_tile;
   const int n_queries = min(queries_per_tile, batch - q0);
-  const int chunks_per_doc = doc_len / kChunkRows;
+  const int chunks_per_doc = (doc_len + kChunkRows - 1) / kChunkRows;
+  // packed rows of chunk c: kPairRows, or half as many in a doc's last
+  // chunk where L % 64 == 32
+  auto chunk_pairs = [&](int c) {
+    return kTail ? min(kPairRows, (doc_len - c * kChunkRows) / 2) : kPairRows;
+  };
   const int d0 = blockIdx.x * docs_per_block;
   const int d1 = min(n_docs, d0 + docs_per_block);
   // the chunks of a doc that can change its score: rows past the length
@@ -269,10 +282,11 @@ maxsim_int4_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
       if (!cp_more) return;
       const int p = tw * kPackedPerWarp + issued % kPackedPerWarp;
       if (lane == 0) {
-        mbar_arrive_expect_tx(&packed_full[p], C::kPackedBytes);
+        const uint32_t bytes = chunk_pairs(cp.chunk) * D;
+        mbar_arrive_expect_tx(&packed_full[p], bytes);
         bulk_copy_g2s(s_packed + p * C::kPackedBytes,
                       emb + ((size_t)cp.doc * doc_len / 2 + (size_t)cp.chunk * kPairRows) * D,
-                      C::kPackedBytes, &packed_full[p]);
+                      bytes, &packed_full[p]);
       }
       doc = cp.doc;
       chunk = cp.chunk;
@@ -317,11 +331,14 @@ maxsim_int4_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
     };
 
     for (int local = 0; local < issued; ++local) {
-      // the chunk's 8 group scales ride with its tile; loaded first, stored last
+      // the chunk's 8 group scales ride with its tile; loaded first, stored
+      // last. A 32-row chunk's absent groups get NaN: no max takes them.
+      const int pairs = chunk_pairs(q_chunk[0]);
+      const int vecs = pairs * KSTEPS;  // 16-byte packed pieces of the chunk
       const float scale =
-          lane < kGroups
+          lane < 2 * pairs / kGroupRows
               ? __ldg(gscale + (size_t)(q_chunk[0] * kGroups + lane) * n_docs + q_doc[0])
-              : 0.f;
+              : __int_as_float(0x7fc00000);
       const int seq = local * kTransformWarps + tw;  // live chunk index
       const int p = tw * kPackedPerWarp + local % kPackedPerWarp;
       mbar_wait(&packed_full[p], (local / kPackedPerWarp) & 1);
@@ -330,7 +347,7 @@ maxsim_int4_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
 #pragma unroll
       for (int v = 0; v < C::kVecsPerWarpLane; ++v) {
         const int idx = lane + 32 * v;
-        if (idx < C::kVecs) pre[v] = src[idx];
+        if (idx < vecs) pre[v] = src[idx];
       }
       // Stage p is read: refill it. A bulk copy writes through the async
       // proxy, which neither program order nor __syncwarp orders after
@@ -356,7 +373,7 @@ maxsim_int4_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
 #pragma unroll
       for (int v = 0; v < C::kVecsPerWarpLane; ++v) {
         const int idx = lane + 32 * v;
-        if (idx < C::kVecs) {
+        if (idx < vecs) {
           const int pr = idx / KSTEPS;
           const int kv = idx - pr * KSTEPS;  // features 16 kv .. 16 kv + 15
           uint4 lo[2], hi[2];
@@ -444,6 +461,7 @@ maxsim_int4_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
         }
         // columns 8j .. 8j + 7 of the chunk are its group j: the max of the
         // thread's two columns, scaled once, folded into the running max
+        // (a NaN scale, an absent group's, leaves it as it was)
         auto fold = [&](int mt) {
 #pragma unroll
           for (int i = 0; i < 32; ++i) fence_reg(acc[mt][i]);
@@ -499,8 +517,10 @@ cudaError_t launch_k(const void* q, const void* emb, const void* gs, const void*
                      void* out, int batch, int lq, int n_docs, int doc_len, int sms,
                      cudaStream_t stream) {
   using C = Cfg<K>;
-  cudaError_t err = cudaFuncSetAttribute(
-      maxsim_int4_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
+  const auto kernel =
+      doc_len % kChunkRows ? maxsim_int4_kernel<K, true> : maxsim_int4_kernel<K, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kBytes);
   if (err != cudaSuccess) return err;
   // whole queries per block where one fits; else one query per block in
   // column segments of at most kCols, one launch each, summed in order
@@ -516,7 +536,7 @@ cudaError_t launch_k(const void* q, const void* emb, const void* gs, const void*
   for (int s = 0; s < segments; ++s) {
     const int seg0 = s * seg_w;
     const int seg_len = lq - seg0 < seg_w ? lq - seg0 : seg_w;
-    maxsim_int4_kernel<K><<<grid, kThreads, C::kBytes, stream>>>(
+    kernel<<<grid, kThreads, C::kBytes, stream>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const int8_t*>(emb),
         static_cast<const float*>(gs), static_cast<const int*>(lengths),
         static_cast<float*>(out), lq, batch, n_docs, doc_len, dpb, qpt, seg0, seg_len, s > 0);
@@ -538,7 +558,7 @@ extern "C" int maxsim_int4_group_launch(const void* q, const void* emb,
                                         int lq, int dim, int n_docs, int doc_len,
                                         void* stream) {
   if (dim < 16 || dim > 256 || dim % 16 != 0 || doc_len <= 0 ||
-      doc_len % kChunkRows != 0 || lq <= 0 || lq > 256 || batch < 0 || n_docs < 0)
+      doc_len % 32 != 0 || lq <= 0 || lq > 256 || batch < 0 || n_docs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || n_docs == 0) return 0;
   int dev = 0, sms = 0;

@@ -17,10 +17,13 @@
 // ~9.6 M valid rows need products, ~0.63 TFLOP, ~0.64 ms at the H100
 // SXM's 989 TFLOP/s bf16 rate, against ~1.23 GB of valid int8 rows,
 // ~0.37 ms at 3.35 TB/s: operations. The design (maxsim_mma.cuh) keeps the
-// tensor cores fed as the int8 kernel does, drops the per-row scale and
+// tensor cores fed (query in registers, rows converted once while staged),
+// drops the per-row scale and
 // mask from the accumulator epilogue (the doc scale multiplies each sum
 // once), and skips the loads of 64-row chunks and the products of 16-row
-// tiles that lie wholly past the doc's length.
+// tiles that lie wholly past the doc's length. Where L % 64 == 32 a
+// doc's last chunk is 32 rows; the 32 absent rows lie past every length
+// and are skipped.
 
 #include "maxsim_mma.cuh"
 
@@ -41,14 +44,16 @@ struct Int8DocRows {
     static constexpr int kVecPerThread = (kVecPerChunk + kThreads - 1) / kThreads;
     int4 pre[kVecPerThread];  // the chunk's int8 rows, in flight
 
-    __device__ void fetch(const Operands& op, int, int doc_len, int doc, int chunk) {
+    __device__ void fetch(const Operands& op, int, int doc_len, int doc, int chunk,
+                          int rows) {
       const size_t row0 = (size_t)doc * doc_len + chunk * kChunkRows;
       const int4* src = reinterpret_cast<const int4*>(
           static_cast<const int8_t*>(op.emb) + row0 * D);
 #pragma unroll
       for (int v = 0; v < kVecPerThread; ++v) {
         const int idx = threadIdx.x + v * kThreads;
-        if (idx < kVecPerChunk) pre[v] = src[idx];
+        if (idx < kVecPerChunk)
+          pre[v] = idx < rows * kVecPerRow ? src[idx] : make_int4(0, 0, 0, 0);
       }
     }
 

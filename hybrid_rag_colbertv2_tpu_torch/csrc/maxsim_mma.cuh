@@ -1,32 +1,32 @@
-// Shared body of the port's tensor-core MaxSim scans for Hopper (sm_90a).
+// Shared body of the port's mma.sync MaxSim scans for Hopper (sm_90a).
 //
 // One kernel template, instantiated per index layout by the .cu files
-// beside it (maxsim_int8.cu, maxsim_int8_doc.cu, maxsim_int4_group.cu and
-// the bf16 entry point of maxsim.cu). Every layout computes
+// beside it (maxsim_int8_doc.cu and the bf16 entry point of maxsim.cu).
+// Every layout computes
 //
 //   score[b, n] = sum_i max_j  v(q[b, i] . e[n, j])
 //
 // over the doc's L token rows j and the query's Lq rows i, where q is
-// bf16, e is staged to bf16 exactly (int8, int4 and bf16 values all are),
+// bf16, e is staged to bf16 exactly (int8 and bf16 values both are),
 // products and sums are fp32, and v() is the layout's row rule:
 //
-//   int8      (per-row scale s_j)  v = s_j > 0 ? s_j * x : -1e30
 //   bf16      (row mask m_j)       v = m_j     ? x       : -1e30
-//   int4-doc  (group scale s_g(j)) v = s_g(j) * x
 //   int8-doc  (doc scale s_n)      v = x, and the sum is multiplied by s_n
 //
-// For int4-doc, max_j s_g(j) x_j equals the TPU kernel's
-// max_g s_g max_{j in g} x_j bit for bit: s >= 0, and rounding s * x is
-// monotonic in x. int8-doc and int4-doc store padding rows as copies of a
-// valid row (ops/quant.py), so their chunks and 16-row tiles at or beyond
-// the doc's length can be skipped exactly; a zero-length doc scores 0.
+// int8-doc stores padding rows as copies of a valid row (ops/quant.py),
+// so its chunks and 16-row tiles at or beyond the doc's length can be
+// skipped exactly; a zero-length doc scores 0.
 //
-// Structure (the design of maxsim_int8.cu, first written for that layout):
+// Structure (first written for the int8 layout, whose scan now has its
+// own wgmma kernel, maxsim_int8.cu):
 //  * A block owns a tile of up to 256 query-token columns (whole queries)
 //    and walks docs with a grid stride. Each of its 8 warps owns 32
 //    columns and keeps their bf16 query fragments in registers for the
 //    whole kernel, so the query is read once per block, not per doc.
-//  * A doc's rows move 64 at a time. Each thread loads its share of the
+//  * A doc's rows move 64 at a time (32 in a doc's last chunk where
+//    L % 64 == 32: the layout stages the absent rows as zeros, which the
+//    bf16 mask drops and int8-doc's skip by length never reaches, and
+//    no row past the doc is read). Each thread loads its share of the
 //    next chunk (16-byte loads) into registers while the block computes
 //    on the current one; the layout's Stage converts it once per element
 //    while writing it to shared memory as bf16 (double buffered, rows
@@ -44,7 +44,7 @@
 //    barrier). Every output is written by one thread, with no atomics:
 //    results are deterministic.
 //
-// Takes any B (grid.y tiles the columns), L a multiple of 64, D a multiple
+// Takes any B (grid.y tiles the columns), L a multiple of 32, D a multiple
 // of 16 up to 256, Lq up to 256, and any N.
 
 #pragma once
@@ -94,12 +94,6 @@ __device__ __forceinline__ uint2 s8x4_to_bf16x4(uint32_t w) {
   return make_uint2(bf16x2(f0, f1), bf16x2(f2, f3));
 }
 
-// Sign-extended 4-bit field whose top bit is bit `top` of w.
-template <int top>
-__device__ __forceinline__ float s4(uint32_t w) {
-  return static_cast<float>(static_cast<int32_t>(w << (31 - top)) >> 28);
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t a[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
@@ -122,13 +116,18 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
 //   static constexpr bool kSkipByLength; // rows past the length are copies
 //   static constexpr bool kDocScale;     // the sum is times scales[doc]
 //   template <int D> struct Stage {
-//     // registers <- the chunk's rows (and factors) from device memory
+//     // registers <- the chunk's first `rows` rows (64, or 32 at a doc's
+//     // end) from device memory, and zeros for the rest
 //     __device__ void fetch(const Operands&, int n_docs, int doc_len,
-//                           int doc, int chunk);
+//                           int doc, int chunk, int rows);
 //     // shared memory <- 64 bf16 rows (row stride D + 8) and 64 factors
 //     __device__ void store(__nv_bfloat16* rows, float* factors);
 //   };
-template <class Layout, int KSTEPS>
+// kTail: L % 64 == 32, so a doc's last chunk is 32 rows. Without it every
+// chunk is 64 rows at compile time, and the staging code is that of whole
+// chunks alone (a runtime row count there slowed the int8-doc scan by a
+// tenth at the main path's shape).
+template <class Layout, int KSTEPS, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
                   Operands op,
@@ -169,8 +168,9 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
     }
   }
 
-  // this block's work: its docs (grid stride) x the doc's 64-row chunks
-  const int chunks_per_doc = doc_len / kChunkRows;
+  // this block's work: its docs (grid stride) x the doc's 64-row chunks,
+  // the last one 32 rows where L % 64 == 32
+  const int chunks_per_doc = (doc_len + kChunkRows - 1) / kChunkRows;
   const int my_docs = (n_docs - blockIdx.x + gridDim.x - 1) / gridDim.x;
   const int n_items = my_docs * chunks_per_doc;
   auto doc_of = [&](int item) {
@@ -186,7 +186,8 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
     const int doc = doc_of(item);
     const int chunk = item % chunks_per_doc;
     if (chunk * kChunkRows < live_len(doc))
-      stage.fetch(op, n_docs, doc_len, doc, chunk);
+      stage.fetch(op, n_docs, doc_len, doc, chunk,
+                  kTail ? min(kChunkRows, doc_len - chunk * kChunkRows) : kChunkRows);
   };
 
   // ldmatrix x4 lane address: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15)
@@ -303,16 +304,16 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
   if (pend_doc >= 0) write_sum();
 }
 
-template <class Layout, int K>
+template <class Layout, int K, bool kTail>
 cudaError_t launch_k(dim3 grid, cudaStream_t s, const void* q, Operands op,
                      void* out, int n_cols, int lq, int n_docs, int doc_len,
                      int qpt) {
   constexpr int bytes = Smem<K * 16>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      maxsim_mma_kernel<Layout, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      maxsim_mma_kernel<Layout, K, kTail>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       bytes);
   if (err != cudaSuccess) return err;
-  maxsim_mma_kernel<Layout, K><<<grid, kThreads, bytes, s>>>(
+  maxsim_mma_kernel<Layout, K, kTail><<<grid, kThreads, bytes, s>>>(
       static_cast<const __nv_bfloat16*>(q), op, static_cast<float*>(out),
       n_cols, lq, n_docs, doc_len, qpt);
   return cudaSuccess;
@@ -325,7 +326,7 @@ template <class Layout>
 int launch_mma(const void* q, Operands op, void* out, int batch, int lq,
                int dim, int n_docs, int doc_len, void* stream) {
   if (dim < 16 || dim > 256 || dim % 16 != 0 || doc_len <= 0 ||
-      doc_len % kChunkRows != 0 || lq <= 0 || lq > kTileCols || batch < 0 ||
+      doc_len % 32 != 0 || lq <= 0 || lq > kTileCols || batch < 0 ||
       n_docs < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || n_docs == 0) return 0;
@@ -340,8 +341,11 @@ int launch_mma(const void* q, Operands op, void* out, int batch, int lq,
   cudaError_t err = cudaSuccess;
 #define MAXSIM_MMA_CASE(K)                                                    \
   case K:                                                                     \
-    err = launch_k<Layout, K>(grid, s, q, op, out, n_cols, lq, n_docs,        \
-                              doc_len, qpt);                                  \
+    err = doc_len % kChunkRows                                                \
+              ? launch_k<Layout, K, true>(grid, s, q, op, out, n_cols, lq,    \
+                                          n_docs, doc_len, qpt)               \
+              : launch_k<Layout, K, false>(grid, s, q, op, out, n_cols, lq,   \
+                                           n_docs, doc_len, qpt);             \
     break;
   switch (dim / 16) {
     MAXSIM_MMA_CASE(1)

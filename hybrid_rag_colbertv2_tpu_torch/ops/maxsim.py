@@ -11,15 +11,17 @@ hand-written CUDA kernel that replaces its Pallas kernel:
                               f32 rows           csrc/maxsim_f32.cu
                               (``_maxsim_kernel``)
   ``maxsim_scores_int8``      int8, row scales   csrc/maxsim_int8.cu
-                              (``_maxsim_int8_kernel``)
+                              (``_maxsim_int8_kernel``; wgmma, on
+                              csrc/sm90.cuh)
   ``maxsim_scores_int8_doc``  int8, doc scales   csrc/maxsim_int8_doc.cu
                               (``_maxsim_int8_doc_kernel``)
   ``maxsim_scores_int4_doc``  packed int4 pairs, csrc/maxsim_int4_group.cu
                               group scales       (``_maxsim_int4_group_kernel``;
                                                  wgmma, on csrc/sm90.cuh)
 
-Each has its plain PyTorch version beside it (``*_reference``) and a
-``launches`` count. CUDA tensors launch the kernel on the current stream
+Each takes any doc length L that is a multiple of 32 (a doc's last
+64-row chunk is then 32 rows), has its plain PyTorch version beside it
+(``*_reference``) and a ``launches`` count. CUDA tensors launch the kernel on the current stream
 (operand checks first) or raise; CPU tensors run the plain version.
 
 Masking convention (shared with the JAX package):
@@ -233,8 +235,8 @@ def _check_operands(kernel: str, queries, emb_flat, emb_dtypes, n, rows,
         raise ValueError("emb_flat must be 16-byte aligned")
     if d % 16 or not 16 <= d <= 256:
         raise ValueError(f"the {kernel} kernel takes D % 16 == 0, D <= 256; D={d}")
-    if doc_len % 64:
-        raise ValueError(f"the {kernel} kernel takes L % 64 == 0; L={doc_len}")
+    if doc_len <= 0 or doc_len % 32:
+        raise ValueError(f"the {kernel} kernel takes L % 32 == 0; L={doc_len}")
     if not 0 < lq <= 256:
         raise ValueError(f"the {kernel} kernel takes 0 < Lq <= 256; Lq={lq}")
     if n * doc_len >= 2**31 or b * n >= 2**31:
@@ -245,6 +247,8 @@ def _check_int8_operands(queries, emb_flat, scales, doc_lengths, doc_len):
     n = doc_lengths.shape[0]
     _check_operands("int8", queries, emb_flat, (torch.int8,), n, n * doc_len,
                     doc_len, (("scales", scales, torch.float32, (n * doc_len,)),))
+    if scales.data_ptr() % 16:          # copied in bulk beside the rows
+        raise ValueError("scales must be 16-byte aligned")
 
 
 def _check_float_operands(queries, emb_flat, doc_lengths, doc_len):
@@ -382,8 +386,9 @@ def maxsim_scores_int4_doc(
 ) -> torch.Tensor:              # (B, N) float32
     """Full int4-doc scan (csrc/maxsim_int4_group.cu on the card), with
     G = L / 8 token groups (``ops/quant.py::int4_group_size`` for
-    L % 64 == 0). The kernel multiplies every stored row of each 64-row
-    chunk that holds a valid row, as the plain version does: the padding
+    L % 32 == 0). The kernel multiplies every stored row of each 64-row
+    chunk (32 at a doc's end where L % 64 == 32) that holds a valid row,
+    as the plain version does: the padding
     rows there copy valid rows of their group, and a fully padded group
     carries group 0's scale and row 0, so the result is exact. Chunks
     wholly past a doc's length are skipped, and a zero-length doc scores

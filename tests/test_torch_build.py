@@ -32,10 +32,10 @@ def test_library_key_covers_included_headers(tmp_path):
 
 
 def test_every_kernel_source_hashes_its_header():
-    """The mma.sync scans include the shared mma header; the wgmma int4
-    scan includes the Hopper wrappers header."""
+    """The mma.sync scans include the shared mma header; the wgmma int8
+    and int4 scans include the Hopper wrappers header."""
     for name, header in (("maxsim", "maxsim_mma.cuh"),
-                         ("maxsim_int8", "maxsim_mma.cuh"),
+                         ("maxsim_int8", "sm90.cuh"),
                          ("maxsim_int8_doc", "maxsim_mma.cuh"),
                          ("maxsim_int4_group", "sm90.cuh")):
         names = [p.name for p in _build._sources(name, _build.CSRC)]
@@ -44,7 +44,7 @@ def test_every_kernel_source_hashes_its_header():
 
 def test_copy_of_csrc_shares_the_key_until_edited(tmp_path):
     """A kernel version in another directory laid out like ``csrc/``
-    (``chip_smoke.py --int4-variant``) gets the port's library only while
+    (``chip_smoke.py --variant``) gets the port's library only while
     its source and headers are byte-equal to the port's."""
     name = "maxsim_int4_group"
     for path in _build._sources(name, _build.CSRC):

@@ -54,6 +54,8 @@ def _queries(seed, b, lq, dim, pad_rows=4):
     (3, 64, 130, 32),
     (3, 128, 21, 32),
     (1, 128, 16, 128),    # the main path's widths
+    (2, 32, 29, 32),      # L % 64 == 32: the kernel's 32-row last chunk
+    (2, 96, 23, 32),
 ])
 def test_int8_plain_version_matches_pallas(b, doc_len, n, dim):
     q8, sc, lengths, _ = _index(b * 7 + n, n, doc_len, dim)
@@ -89,10 +91,10 @@ def test_cuda_wrapper_rejects_bad_operands():
     """The operand checks run before any launch (no card needed)."""
     q8, sc, lengths, _ = _index(6, 8, 64, 32)
     q = torch.from_numpy(_queries(6, 1, 32, 32))
-    with pytest.raises(ValueError, match="L % 64"):
-        tm._check_int8_operands(q, torch.from_numpy(q8[: 8 * 32]),
-                                torch.from_numpy(sc[: 8 * 32]),
-                                torch.from_numpy(lengths), 32)
+    with pytest.raises(ValueError, match="L % 32"):
+        tm._check_int8_operands(q, torch.from_numpy(q8[: 8 * 48]),
+                                torch.from_numpy(sc[: 8 * 48]),
+                                torch.from_numpy(lengths), 48)
     with pytest.raises(ValueError, match="int8"):
         tm._check_int8_operands(q, torch.from_numpy(q8).float(),
                                 torch.from_numpy(sc),
@@ -161,6 +163,7 @@ def _launch_counts():
     (1, 64, 37, 32),      # ragged N
     (3, 64, 70, 32),
     (3, 32, 21, 16),
+    (2, 96, 23, 32),      # L % 64 == 32: the kernels' 32-row last chunk
 ])
 def test_float_plain_version_matches_pallas(dtype, b, doc_len, n, dim):
     x, lengths = _float_docs(b * 5 + n, n, doc_len, dim)
@@ -237,7 +240,7 @@ def _doc_layout(seed, n, doc_len, dim, int4):
 
 
 @pytest.mark.parametrize("b,doc_len,n,dim", [
-    (1, 64, 37, 32), (3, 32, 64, 32), (3, 64, 21, 16)])
+    (1, 64, 37, 32), (3, 32, 64, 32), (3, 64, 21, 16), (2, 96, 23, 32)])
 def test_int8_doc_plain_version_matches_pallas(b, doc_len, n, dim):
     flat, sc, lengths = _doc_layout(b + n, n, doc_len, dim, int4=False)
     q = _queries(n, b, 16, dim)
@@ -259,12 +262,13 @@ def test_int8_doc_plain_version_matches_pallas(b, doc_len, n, dim):
 
 @pytest.mark.parametrize("b,doc_len,n,dim", [
     (1, 16, 37, 32), (3, 32, 64, 32), (3, 12, 21, 16),
-    # the CUDA kernel's own shapes: whole 64-row chunks, every stored row
-    # multiplied, so fully padded groups must not change the score
-    (2, 64, 37, 64), (1, 128, 37, 64)])
+    # the CUDA kernel's own shapes: whole 64-row chunks (32 rows in a
+    # doc's last one where L % 64 == 32), every stored row multiplied, so
+    # fully padded groups must not change the score
+    (2, 64, 37, 64), (1, 128, 37, 64), (2, 96, 23, 64)])
 def test_int4_doc_plain_version_matches_pallas(b, doc_len, n, dim):
     flat, gs, lengths = _doc_layout(7 * b + n, n, doc_len, dim, int4=True)
-    if doc_len % 64 == 0:
+    if doc_len % 32 == 0 and doc_len > 32:
         group = doc_len // gs.shape[0]
         assert lengths[4] == 1 and (
             (lengths > 0) & (lengths <= doc_len - group)).sum() >= 5
@@ -319,8 +323,8 @@ def test_new_cuda_wrappers_reject_bad_operands():
     rows = torch.from_numpy(x.reshape(-1, 32))
     with pytest.raises(ValueError, match="bfloat16/float32"):
         tm._check_float_operands(q, rows.to(torch.float16), lens, 64)
-    with pytest.raises(ValueError, match="L % 64"):
-        tm._check_float_operands(q, rows[: 8 * 32], lens, 32)
+    with pytest.raises(ValueError, match="L % 32"):
+        tm._check_float_operands(q, rows[: 8 * 48], lens, 48)
     with pytest.raises(ValueError, match="D % 16"):
         tm._check_float_operands(q[..., :24], rows[:, :24].contiguous(),
                                  lens, 64)
@@ -348,6 +352,40 @@ def test_new_cuda_wrappers_reject_bad_operands():
     tm._check_int8_doc_operands(q, torch.from_numpy(flat),
                                 torch.from_numpy(sc), lens, 64)
     tm._check_float_operands(q, rows, lens, 64)
+
+
+def _operands_at(check, doc_len, n=4, dim=32):
+    """Well-formed CPU operands of one wrapper's operand check, at any
+    ``doc_len``: (queries, emb_flat, *others, doc_len)."""
+    q = torch.zeros(2, 8, dim)
+    lengths = torch.full((n,), doc_len // 2, dtype=torch.int32)
+    rows = n * doc_len
+    if check == "float":
+        return q, torch.zeros(rows, dim, dtype=torch.bfloat16), lengths, doc_len
+    if check == "int8":
+        return (q, torch.zeros(rows, dim, dtype=torch.int8),
+                torch.zeros(rows), lengths, doc_len)
+    if check == "int8_doc":
+        return (q, torch.zeros(rows, dim, dtype=torch.int8), torch.zeros(n),
+                lengths, doc_len)
+    return (q, torch.zeros(rows // 2, dim, dtype=torch.int8),
+            torch.zeros(doc_len // 8, n), lengths, doc_len)
+
+
+@pytest.mark.parametrize("check", ["float", "int8", "int8_doc", "int4"])
+@pytest.mark.parametrize("doc_len", [32, 96, 160, 48])
+def test_operand_checks_take_doc_len_multiple_of_32(check, doc_len):
+    """Every CUDA wrapper takes any L that is a multiple of 32, as the JAX
+    scans and ``RAGConfig.validate``'s doc-token buckets do (a doc's last
+    64-row chunk is then 32 rows), and raises before any launch on other
+    lengths."""
+    fn = getattr(tm, f"_check_{check}_operands")
+    args = _operands_at(check, doc_len)
+    if doc_len % 32:
+        with pytest.raises(ValueError, match="L % 32"):
+            fn(*args)
+    else:
+        fn(*args)
 
 
 @pytest.mark.parametrize("layout", ["int8-doc", "int4-doc", "bfloat16",
