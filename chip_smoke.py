@@ -11,9 +11,10 @@ once), holds each kernel against its plain PyTorch version on the card
 at doc lengths L = 32, 64, 96, 128, 160 and 256 (every multiple of 32
 is taken: a doc's last 64-row chunk is then 32 rows), the float kernels
 also on docs with nonzero rows past their length, which their content
-mask must score; the int4 kernel also at doc lengths on every 8-row
-group and 32-row half-chunk edge; the int8 and int4 kernels 300 times
-over on an index that stays in L2), then serves batches of 8
+mask must score; the int4 and int8-doc kernels also at doc lengths on
+every edge of their chunks and groups; the int8, int8-doc and int4
+kernels 300 times over on an index that stays in L2), then serves
+batches of 8
 queries through ``HybridRetriever.retrieve_batch`` with the ``small``
 encoder preset (random weights from a seed), on both
 dense routes of every flat index layout:
@@ -73,7 +74,7 @@ N_TIMED_CALLS = 40
 N_REPEATS = 50
 # launches of each bulk-copy kernel on a small index that stays in L2
 N_STRESS = 300
-STRESS_KERNELS = ("maxsim_int8", "maxsim_int4_group")
+STRESS_KERNELS = ("maxsim_int8", "maxsim_int4_group", "maxsim_int8_doc")
 # kernel vs plain version: fp32 sums in other orders (products are exact)
 RTOL, ATOL = 1e-5, 1e-3
 # published dense peaks: (bf16 tensor FLOP/s, HBM bytes/s, fp32 FLOP/s on
@@ -310,61 +311,77 @@ def phase_kernel_small(device):
                 f"max_abs_err={err:.3e} top100_ids_equal={same}")
 
 
-INT4_EDGE_LENGTHS = (0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 56, 63, 64, 65,
-                     95, 96, 97, 127, 128, 129, 159, 160, 161, 191, 192)
+# doc lengths on the edges of each length-skipping kernel's design (those
+# up to L are taken), and its cases (B, L, N, D, Lq)
+EDGE_LENGTHS = {
+    "maxsim_int4_group": (0, 1, 7, 8, 9, 15, 16, 17, 31, 32, 33, 56, 63, 64,
+                          65, 95, 96, 97, 127, 128, 129, 159, 160, 161, 191,
+                          192),
+    "maxsim_int8_doc": (0, 1, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128,
+                        129, 159, 160),
+}
+EDGE_CASES = {
+    "maxsim_int4_group": [
+        (1, 64, 1037, 64, LQ), (9, 128, 515, 128, LQ), (64, 64, 301, 16, LQ),
+        (2, 64, 150, 256, 200), (9, 128, 333, 256, LQ), (3, 64, 77, 128, 200),
+        (1, 192, 131, 64, LQ), (8, 64, 20_000, 256, LQ),
+        (9, 128, 20_011, 208, LQ), (8, 64, 20_000, 192, LQ),
+        (8, 32, 1001, 128, LQ), (9, 96, 515, 128, LQ), (3, 160, 333, 64, LQ),
+        (2, 96, 150, 256, 200), (8, 160, 20_000, 208, LQ)],
+    "maxsim_int8_doc": [
+        (1, 128, 1037, 64, LQ), (9, 160, 515, 128, LQ),
+        (64, 128, 301, 16, LQ), (2, 128, 150, 256, 200),
+        (9, 160, 333, 256, LQ), (3, 160, 77, 128, 200),
+        (8, 128, 3001, 128, LQ), (8, 160, 20_000, 256, LQ),
+        (9, 128, 20_011, 208, LQ), (8, 160, 20_000, 192, LQ)],
+}
 
 
-def phase_int4_edges(device):
-    """maxsim_int4_group vs its plain version where its design has edges:
-    doc lengths at every 8-row group boundary, 32-row half chunk and
-    64-row chunk edge (partly and fully padded groups; at L = 32, 96 and
-    160 a doc's last chunk is 32 rows), N a multiple of neither 4 nor the
-    docs per block, D in {16, 64, 128, 256}, B in {1, 9, 64} (query rows
-    ending mid m-tile, several column tiles) and Lq = 200 (column
-    segments at D = 256); and N = 20,000 at D in {192, 208, 256}, a few
-    hundred docs per block, so that the transform warps cycle through the
-    shallower tile rings of the wide rows many times. Zero-length docs must
-    score exactly 0; five launches must agree bit for bit."""
+def phase_length_edges(device):
+    """The kernels that skip 64-row chunks by doc length
+    (``maxsim_int4_group``, ``maxsim_int8_doc``) vs their plain versions
+    where that design has edges: doc lengths on every 64-row chunk edge,
+    every 32-row half chunk (at L = 32, 96 and 160 a doc's last chunk is
+    32 rows) and, for int4, every 8-row group (partly and fully padded
+    groups); N a multiple of neither 4 nor the docs per block, D from 16
+    to 256, B in {1, 9, 64} (query rows ending mid m-tile, several column
+    tiles) and Lq = 200 (column segments at D = 256); and N = 20,000 at
+    D in {192, 208, 256}, a few hundred docs per block, so that the
+    transform warps cycle through the shallower tile rings of the wide
+    rows many times. Zero-length docs must score exactly 0; five launches
+    must agree bit for bit."""
     import torch
-    from hybrid_rag_colbertv2_tpu_torch.ops.quant import quantize_int4_groups
+    from hybrid_rag_colbertv2_tpu_torch.ops.quant import (
+        quantize_int4_groups, quantize_int8_docs)
     gen = torch.Generator(device=device).manual_seed(3)
-    cases = [(1, 64, 1037, 64, LQ), (9, 128, 515, 128, LQ),
-             (64, 64, 301, 16, LQ), (2, 64, 150, 256, 200),
-             (9, 128, 333, 256, LQ), (3, 64, 77, 128, 200),
-             (1, 192, 131, 64, LQ), (8, 64, 20_000, 256, LQ),
-             (9, 128, 20_011, 208, LQ), (8, 64, 20_000, 192, LQ),
-             (8, 32, 1001, 128, LQ), (9, 96, 515, 128, LQ),
-             (3, 160, 333, 64, LQ), (2, 96, 150, 256, 200),
-             (8, 160, 20_000, 208, LQ)]
-    for b, doc_len, n, dim, lq in cases:
-        ends = tuple(e for e in INT4_EDGE_LENGTHS if e <= doc_len)
-        lengths = torch.tensor([ends[i % len(ends)] for i in range(n)],
-                               dtype=torch.int32, device=device)
-        x = torch.randn(n, doc_len, dim, generator=gen, device=device)
-        x = x / x.norm(dim=-1, keepdim=True)
-        x *= (torch.arange(doc_len, device=device)[None, :]
-              < lengths[:, None])[..., None]
-        emb, gs = quantize_int4_groups(x, lengths)
-        q = torch.randn(b, lq, dim, generator=gen, device=device)
-        q = q / q.norm(dim=-1, keepdim=True)
-        q[:, lq - 3:] = 0.0
-        out = scan("maxsim_int4_group", "kernel", q, emb, None, gs, lengths,
-                   doc_len)
-        for _ in range(4):
-            if not torch.equal(out, scan("maxsim_int4_group", "kernel", q,
-                                         emb, None, gs, lengths, doc_len)):
-                raise AssertionError("maxsim_int4_group: launches differ")
-        torch.cuda.synchronize()
-        ref = scan("maxsim_int4_group", "plain", q, emb, None, gs, lengths,
-                   doc_len)
-        err, same = compare(out, ref, min(100, n))
-        zero = lengths == 0
-        if not (out[:, zero] == 0).all():
-            raise AssertionError("maxsim_int4_group: zero-length docs must "
-                                 "score exactly 0")
-        log(f"kernel maxsim_int4_group edges B={b} Lq={lq} L={doc_len} N={n}"
-            f" D={dim} lengths {ends}: max_abs_err={err:.3e} "
-            f"top100_ids_equal={same}, 5 launches bit-equal")
+    quantize = {"maxsim_int4_group": quantize_int4_groups,
+                "maxsim_int8_doc": quantize_int8_docs}
+    for kernel, cases in EDGE_CASES.items():
+        for b, doc_len, n, dim, lq in cases:
+            ends = tuple(e for e in EDGE_LENGTHS[kernel] if e <= doc_len)
+            lengths = torch.tensor([ends[i % len(ends)] for i in range(n)],
+                                   dtype=torch.int32, device=device)
+            x = torch.randn(n, doc_len, dim, generator=gen, device=device)
+            x = x / x.norm(dim=-1, keepdim=True)
+            x *= (torch.arange(doc_len, device=device)[None, :]
+                  < lengths[:, None])[..., None]
+            emb, doc_scales = quantize[kernel](x, lengths)
+            q = torch.randn(b, lq, dim, generator=gen, device=device)
+            q = q / q.norm(dim=-1, keepdim=True)
+            q[:, lq - 3:] = 0.0
+            args = (q, emb, None, doc_scales, lengths, doc_len)
+            out = scan(kernel, "kernel", *args)
+            for _ in range(4):
+                if not torch.equal(out, scan(kernel, "kernel", *args)):
+                    raise AssertionError(f"{kernel}: launches differ")
+            torch.cuda.synchronize()
+            err, same = compare(out, scan(kernel, "plain", *args), min(100, n))
+            if not (out[:, lengths == 0] == 0).all():
+                raise AssertionError(f"{kernel}: zero-length docs must score "
+                                     "exactly 0")
+            log(f"kernel {kernel} edges B={b} Lq={lq} L={doc_len} N={n} "
+                f"D={dim} lengths {ends}: max_abs_err={err:.3e} "
+                f"top100_ids_equal={same}, 5 launches bit-equal")
 
 
 def kernel_launcher(kernel, csrc, q, emb, scales, doc_scales, lengths,
@@ -397,9 +414,11 @@ def stress_index(kernel, gen, device, b, doc_len, n, dim):
     -> (q, emb, scales, doc_scales, lengths)"""
     import torch
     from hybrid_rag_colbertv2_tpu_torch.ops.quant import (
-        quantize_int4_groups, quantize_int8_rows)
+        quantize_int4_groups, quantize_int8_docs, quantize_int8_rows)
     lengths = torch.randint(doc_len // 2, doc_len + 1, (n,), generator=gen,
                             device=device, dtype=torch.int32)
+    if kernel == "maxsim_int8_doc":
+        lengths[::50] = 0              # no live chunk: scored exactly 0
     x = torch.randn(n, doc_len, dim, generator=gen, device=device)
     x = x / x.norm(dim=-1, keepdim=True)
     x *= (torch.arange(doc_len, device=device)[None, :]
@@ -409,18 +428,21 @@ def stress_index(kernel, gen, device, b, doc_len, n, dim):
     if kernel == "maxsim_int8":
         emb, scales = quantize_int8_rows(x.reshape(-1, dim))
         return q, emb, scales, None, lengths
-    emb, gs = quantize_int4_groups(x, lengths)
-    return q, emb, None, gs, lengths
+    quantize = (quantize_int8_docs if kernel == "maxsim_int8_doc"
+                else quantize_int4_groups)
+    emb, doc_scales = quantize(x, lengths)
+    return q, emb, None, doc_scales, lengths
 
 
 def phase_stress(device, variants):
     """Each bulk-copy kernel (``STRESS_KERNELS``) N_STRESS times on a
     small index that stays in L2 (B=8, Lq=32, L=128, N=3001, D=128), where
     bulk copies land fast: each launch must agree with the plain version
-    and bit for bit with the first. Without a proxy fence between a warp's
-    reads of a copied stage and the bulk copy that refills it, most int4
-    launches here scored wrong. Each ``--variant`` of these kernels takes
-    the same launches; its failures are counted, not fatal."""
+    and bit for bit with the first (the int8-doc index's zero-length
+    docs exactly 0). Without a proxy fence between a warp's reads of a
+    copied stage and the bulk copy that refills it, most int4 launches
+    here scored wrong. Each ``--variant`` of these kernels takes the same
+    launches; its failures are counted, not fatal."""
     import torch
     from hybrid_rag_colbertv2_tpu_torch.ops import _build
     gen = torch.Generator(device=device).manual_seed(4)
@@ -448,6 +470,10 @@ def phase_stress(device, variants):
             err, _ = compare(first, ref, 100)
             if wrong or differ:
                 raise AssertionError(f"{kernel} stress: {msg}")
+            if doc_scales is not None and not (
+                    first[:, lengths == 0] == 0).all():
+                raise AssertionError(f"{kernel} stress: zero-length docs "
+                                     "must score exactly 0")
             log(f"kernel {kernel} stress: {msg}; max_abs_err={err:.3e}")
 
 
@@ -708,12 +734,16 @@ def kernel_numbers(kernel, path, q_emb, peaks, variants=()):
         f"{flops / k_ms * 1e3 / peak_ops:.1%} of the "
         f"{'fp32 FFMA' if layout == 'float32' else 'bf16 tensor'} peak; "
         f"time / bound {k_ms / bound:.2f}")
-    if layout in ("int8", "int4-doc"):
+    if layout in ("int8", "int8-doc", "int4-doc"):
         # these kernels multiply every stored row of a 64-row chunk that
-        # holds a valid row (int8: a nonzero scale)
+        # holds a valid row (int8: a nonzero scale; int8-doc: a chunk that
+        # starts before the length, always 64 columns wide)
         if layout == "int8":
             live = (dense.scales.reshape(-1, 64) > 0).any(dim=1)
             stored_rows = int(live.sum()) * 64
+        elif layout == "int8-doc":
+            chunks = (dense.doc_lengths.long() + 63) // 64
+            stored_rows = int(chunks.clamp(0, (doc_len + 63) // 64).sum()) * 64
         else:
             stored_rows = rows
         stored = 2.0 * b * lq * d * stored_rows
@@ -816,13 +846,18 @@ def main() -> int:
     for src, lib in libs.items():
         ptxas = lib.with_suffix(".log").read_text()
         regs = [int(w) for w in re.findall(r"Used (\d+) registers", ptxas)]
-        spills = re.findall(r"([1-9]\d*) bytes spill", ptxas)
+        spills = []   # (the kernel's first template argument, bytes)
+        for fn, n in re.findall(r"Function properties for (\S+)\n\s*\d+ "
+                                r"bytes stack frame, ([1-9]\d*) bytes spill "
+                                r"stores", ptxas):
+            k = re.search(r"Li(\d+)E", fn)
+            spills.append((k.group(1) if k else fn[:40], n))
         log(f"ptxas {src}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
             f"registers, spills: {spills or 'none'}")
 
     # -- phase 2: each kernel vs its plain version at small shapes ------
     phase_kernel_small(device)
-    phase_int4_edges(device)
+    phase_length_edges(device)
     phase_stress(device, variants)
     phase_float_skip(device)
     if "--kernels-only" in sys.argv[1:]:

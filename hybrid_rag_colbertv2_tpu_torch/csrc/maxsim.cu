@@ -32,8 +32,6 @@ using namespace maxsim;
 struct Bf16Rows {
   static constexpr bool kRowScale = true;  // the factor is the row's 0/1 mask
   static constexpr bool kMaskZero = true;
-  static constexpr bool kSkipByLength = false;
-  static constexpr bool kDocScale = false;
 
   template <int D>
   struct Stage {
@@ -86,7 +84,7 @@ struct Bf16Rows {
 extern "C" int maxsim_bf16_launch(const void* q, const void* emb, void* out,
                                   int batch, int lq, int dim, int n_docs,
                                   int doc_len, void* stream) {
-  const Operands op{emb, nullptr, nullptr};
+  const Operands op{emb};
   return launch_mma<Bf16Rows>(q, op, out, batch, lq, dim, n_docs, doc_len, stream);
 }
 

@@ -116,15 +116,6 @@ struct Cfg {
 // slot by one warp, in order, so its col_full phases cannot alias.
 static_assert(kColSlots % kTransformWarps == 0, "a slot summed by two warps");
 
-// A load the compiler may not hoist out of its branch: `out` is read only
-// when a later column segment adds to it, and a speculated read would put a
-// device-memory round trip on every doc.
-__device__ __forceinline__ float load_volatile(const float* p) {
-  float v;
-  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
-  return v;
-}
-
 // 16 packed bytes (features f..f+15) -> the even row's and the odd row's
 // 16 bf16 each, as two 16-byte pieces per row. A nibble n holding the
 // signed value s becomes n ^ 8 = s + 8; a byte permute sets 0x43 above it,

@@ -123,35 +123,6 @@ struct Cfg {
 // slot by one warp, in order, so its col_full phases cannot alias.
 static_assert(kColSlots % kTransformWarps == 0, "a slot summed by two warps");
 
-// A load the compiler may not hoist out of its branch: `out` is read only
-// when a later column segment adds to it, and a speculated read would put a
-// device-memory round trip on every doc.
-__device__ __forceinline__ float load_volatile(const float* p) {
-  float v;
-  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
-  return v;
-}
-
-// x - y on bf16 pairs, as one bf16x2 FMA (y * -1 + x); exact where the
-// difference is representable.
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t x, uint32_t y) {
-  uint32_t r;
-  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(y), "r"(0xBF80BF80u), "r"(x));
-  return r;
-}
-
-// Four int8 (one word, lowest byte first) -> four bf16, exact. A byte
-// permute sets 0x43 above each byte's low 7 bits r, the bf16 128 + r, and
-// above its sign bit alone, the bf16 128 (s >= 0) or 256 (s < 0); their
-// difference is s (r or r - 128, two's complement), |s| <= 128.
-__device__ __forceinline__ uint2 s8x4_to_bf16x4(uint32_t w) {
-  const uint32_t low = w & 0x7F7F7F7Fu, sign = w & 0x80808080u;
-  return make_uint2(bf16x2_sub(__byte_perm(low, 0x43434343u, 0x4140),
-                               __byte_perm(sign, 0x43434343u, 0x4140)),
-                    bf16x2_sub(__byte_perm(low, 0x43434343u, 0x4342),
-                               __byte_perm(sign, 0x43434343u, 0x4342)));
-}
-
 template <int KSTEPS>
 __global__ void __launch_bounds__(kThreads, 1)
 maxsim_int8_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)

@@ -1,43 +1,32 @@
-// Shared body of the port's mma.sync MaxSim scans for Hopper (sm_90a).
-//
-// One kernel template, instantiated per index layout by the .cu files
-// beside it (maxsim_int8_doc.cu and the bf16 entry point of maxsim.cu).
-// Every layout computes
+// Body of the port's mma.sync MaxSim scan for Hopper (sm_90a), now the
+// bf16 entry point of maxsim.cu alone (the other layouts' scans have wgmma
+// kernels of their own on sm90.cuh). It computes
 //
 //   score[b, n] = sum_i max_j  v(q[b, i] . e[n, j])
 //
-// over the doc's L token rows j and the query's Lq rows i, where q is
-// bf16, e is staged to bf16 exactly (int8 and bf16 values both are),
-// products and sums are fp32, and v() is the layout's row rule:
+// over the doc's L token rows j and the query's Lq rows i, where q and e
+// are bf16, products and sums are fp32, and v() is the layout's row rule
+// (bf16, row mask m_j: v = m_j ? x : -1e30).
 //
-//   bf16      (row mask m_j)       v = m_j     ? x       : -1e30
-//   int8-doc  (doc scale s_n)      v = x, and the sum is multiplied by s_n
-//
-// int8-doc stores padding rows as copies of a valid row (ops/quant.py),
-// so its chunks and 16-row tiles at or beyond the doc's length can be
-// skipped exactly; a zero-length doc scores 0.
-//
-// Structure (first written for the int8 layout, whose scan now has its
-// own wgmma kernel, maxsim_int8.cu):
+// Structure (first written for the int8 layout, now scanned by
+// maxsim_int8.cu):
 //  * A block owns a tile of up to 256 query-token columns (whole queries)
 //    and walks docs with a grid stride. Each of its 8 warps owns 32
 //    columns and keeps their bf16 query fragments in registers for the
 //    whole kernel, so the query is read once per block, not per doc.
 //  * A doc's rows move 64 at a time (32 in a doc's last chunk where
 //    L % 64 == 32: the layout stages the absent rows as zeros, which the
-//    bf16 mask drops and int8-doc's skip by length never reaches, and
-//    no row past the doc is read). Each thread loads its share of the
-//    next chunk (16-byte loads) into registers while the block computes
-//    on the current one; the layout's Stage converts it once per element
-//    while writing it to shared memory as bf16 (double buffered, rows
+//    bf16 mask drops, and no row past the doc is read). Each thread loads
+//    its share of the next chunk (16-byte loads) into registers while the
+//    block computes on the current one; the layout's Stage writes it to
+//    shared memory as bf16 (double buffered, rows
 //    padded by 16 bytes so ldmatrix reads hit distinct banks), with one
 //    fp32 factor per row beside it. One barrier per chunk.
 //  * Warps read A fragments with ldmatrix and multiply with mma.sync
 //    m16n8k16 bf16 -> fp32, skipping 16-row tiles that cannot change the
-//    max (all rows masked, or past the doc's length). v() is applied to
-//    the fp32 accumulators and folded into a running per-column max in
-//    registers, so the (rows x columns) similarity block never leaves
-//    registers.
+//    max (all rows masked). v() is applied to the fp32 accumulators and
+//    folded into a running per-column max in registers, so the (rows x
+//    columns) similarity block never leaves registers.
 //  * After a doc's last chunk, warp shuffles finish the max over rows,
 //    and one thread per query sums its Lq column maxima in ascending
 //    column order (deferred one chunk, double-buffered, to share the next
@@ -73,26 +62,10 @@ struct Smem {
   static constexpr int kBytes = kRowsBytes + kScaleBytes + kColmaxBytes;
 };
 
-// The index operands; each layout reads what it needs.
+// The index operands the layout reads.
 struct Operands {
-  const void* emb;       // rows: int8, packed int4 pairs, or bf16
-  const float* scales;   // per-row (N*L,), per-group (L/8, N) or per-doc (N,)
-  const int* lengths;    // (N,) valid token rows per doc
+  const void* emb;  // (N*L, D) rows
 };
-
-__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-// Four int8 (one 32-bit word, lowest byte first) -> four bf16, exact.
-__device__ __forceinline__ uint2 s8x4_to_bf16x4(uint32_t w) {
-  const float f0 = static_cast<float>(static_cast<int8_t>(w & 0xff));
-  const float f1 = static_cast<float>(static_cast<int8_t>((w >> 8) & 0xff));
-  const float f2 = static_cast<float>(static_cast<int8_t>((w >> 16) & 0xff));
-  const float f3 = static_cast<float>(static_cast<int8_t>(w >> 24));
-  return make_uint2(bf16x2(f0, f1), bf16x2(f2, f3));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t a[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -113,8 +86,6 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
 // Layout interface:
 //   static constexpr bool kRowScale;     // v() reads a per-row factor
 //   static constexpr bool kMaskZero;     // a factor of 0 masks the row
-//   static constexpr bool kSkipByLength; // rows past the length are copies
-//   static constexpr bool kDocScale;     // the sum is times scales[doc]
 //   template <int D> struct Stage {
 //     // registers <- the chunk's first `rows` rows (64, or 32 at a doc's
 //     // end) from device memory, and zeros for the rest
@@ -125,8 +96,8 @@ __device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
 //   };
 // kTail: L % 64 == 32, so a doc's last chunk is 32 rows. Without it every
 // chunk is 64 rows at compile time, and the staging code is that of whole
-// chunks alone (a runtime row count there slowed the int8-doc scan by a
-// tenth at the main path's shape).
+// chunks alone (a runtime row count there slowed the then mma.sync
+// int8-doc scan by a tenth at the main path's shape).
 template <class Layout, int KSTEPS, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
@@ -176,18 +147,11 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
   auto doc_of = [&](int item) {
     return blockIdx.x + (item / chunks_per_doc) * gridDim.x;
   };
-  // rows of the doc that can change its max (block-uniform)
-  auto live_len = [&](int doc) {
-    return Layout::kSkipByLength ? op.lengths[doc] : doc_len;
-  };
-
   typename Layout::template Stage<D> stage;
   auto fetch = [&](int item) {
-    const int doc = doc_of(item);
     const int chunk = item % chunks_per_doc;
-    if (chunk * kChunkRows < live_len(doc))
-      stage.fetch(op, n_docs, doc_len, doc, chunk,
-                  kTail ? min(kChunkRows, doc_len - chunk * kChunkRows) : kChunkRows);
+    stage.fetch(op, n_docs, doc_len, doc_of(item), chunk,
+                kTail ? min(kChunkRows, doc_len - chunk * kChunkRows) : kChunkRows);
   };
 
   // ldmatrix x4 lane address: matrices (rows 0-7 | 8-15) x (cols 0-7 | 8-15)
@@ -199,7 +163,6 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
   for (int nt = 0; nt < kNTiles; ++nt) cmax[nt][0] = cmax[nt][1] = kNegInf;
   int pend_doc = -1;  // doc whose column maxima wait in s_colmax to be summed
   int pend_buf = 0;
-  int pend_len = 0;
 
   // one thread per query sums its Lq column maxima in ascending order
   auto write_sum = [&]() {
@@ -207,8 +170,6 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
       const float* cm = s_colmax + pend_buf * kTileCols + threadIdx.x * lq;
       float s = 0.f;
       for (int i = 0; i < lq; ++i) s += cm[i];
-      if (Layout::kDocScale) s *= op.scales[pend_doc];
-      if (Layout::kSkipByLength && pend_len == 0) s = 0.f;
       out[(size_t)(q0 + threadIdx.x) * n_docs + pend_doc] = s;
     }
   };
@@ -220,13 +181,11 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
     const int doc = doc_of(it);
     const int chunk = it - doc_seq * chunks_per_doc;
     const bool last_chunk = chunk == chunks_per_doc - 1;
-    const int len = live_len(doc);
-    const bool live = chunk * kChunkRows < len;
     __nv_bfloat16* rows = s_rows + buf * kChunkRows * kRowStride;
     float* sc = s_scale + buf * kChunkRows;
 
     // buffer buf was last read two chunks ago, before the previous barrier
-    if (live) stage.store(rows, sc);
+    stage.store(rows, sc);
     if (it + 1 < n_items) fetch(it + 1);
     __syncthreads();
 
@@ -235,15 +194,14 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
       pend_doc = -1;
     }
 
-    if (warp_live && live) {
+    if (warp_live) {
 #pragma unroll
       for (int mt = 0; mt < kMTiles; ++mt) {
         // tiles that cannot change the max are skipped (warp-uniform):
-        // all 16 rows masked, or every row a copy past the doc's length
+        // all 16 rows masked
         if (Layout::kMaskZero &&
             !__any_sync(0xffffffffu, sc[mt * 16 + (lane & 15)] > 0.f))
           continue;
-        if (Layout::kSkipByLength && chunk * kChunkRows + mt * 16 >= len) continue;
         float acc[kNTiles][4];
 #pragma unroll
         for (int nt = 0; nt < kNTiles; ++nt)
@@ -297,7 +255,6 @@ maxsim_mma_kernel(const __nv_bfloat16* __restrict__ q,  // (B*Lq, D)
         }
       }
       pend_doc = doc;
-      pend_len = len;
     }
   }
   __syncthreads();

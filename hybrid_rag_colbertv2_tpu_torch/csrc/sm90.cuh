@@ -2,7 +2,9 @@
 // mbarriers, bulk asynchronous copies, proxy fences, wgmma shared-memory
 // descriptors and the register-A wgmma products, register reallocation.
 // Thin wrappers over PTX, one instruction each (PTX ISA 8.x,
-// "Asynchronous operations", "mbarrier", "wgmma").
+// "Asynchronous operations", "mbarrier", "wgmma"); and what the wgmma
+// scans share besides: an uncached load, the exact int8 -> bf16
+// conversion.
 
 #pragma once
 
@@ -157,6 +159,37 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(0), "r"(accumulate));
+}
+
+// -- shared by the scans -----------------------------------------------------
+
+// A load the compiler may not hoist out of its branch: `out` is read only
+// when a later column segment adds to it, and a speculated read would put a
+// device-memory round trip on every doc.
+__device__ __forceinline__ float load_volatile(const float* p) {
+  float v;
+  asm volatile("ld.global.cg.f32 %0, [%1];\n" : "=f"(v) : "l"(p));
+  return v;
+}
+
+// x - y on bf16 pairs, as one bf16x2 FMA (y * -1 + x); exact where the
+// difference is representable.
+__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t x, uint32_t y) {
+  uint32_t r;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n" : "=r"(r) : "r"(y), "r"(0xBF80BF80u), "r"(x));
+  return r;
+}
+
+// Four int8 (one word, lowest byte first) -> four bf16, exact. A byte
+// permute sets 0x43 above each byte's low 7 bits r, the bf16 128 + r, and
+// above its sign bit alone, the bf16 128 (s >= 0) or 256 (s < 0); their
+// difference is s (r or r - 128, two's complement), |s| <= 128.
+__device__ __forceinline__ uint2 s8x4_to_bf16x4(uint32_t w) {
+  const uint32_t low = w & 0x7F7F7F7Fu, sign = w & 0x80808080u;
+  return make_uint2(bf16x2_sub(__byte_perm(low, 0x43434343u, 0x4140),
+                               __byte_perm(sign, 0x43434343u, 0x4140)),
+                    bf16x2_sub(__byte_perm(low, 0x43434343u, 0x4342),
+                               __byte_perm(sign, 0x43434343u, 0x4342)));
 }
 
 }  // namespace sm90

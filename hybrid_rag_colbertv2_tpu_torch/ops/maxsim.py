@@ -14,7 +14,8 @@ hand-written CUDA kernel that replaces its Pallas kernel:
                               (``_maxsim_int8_kernel``; wgmma, on
                               csrc/sm90.cuh)
   ``maxsim_scores_int8_doc``  int8, doc scales   csrc/maxsim_int8_doc.cu
-                              (``_maxsim_int8_doc_kernel``)
+                              (``_maxsim_int8_doc_kernel``; wgmma,
+                              on csrc/sm90.cuh)
   ``maxsim_scores_int4_doc``  packed int4 pairs, csrc/maxsim_int4_group.cu
                               group scales       (``_maxsim_int4_group_kernel``;
                                                  wgmma, on csrc/sm90.cuh)
@@ -354,13 +355,15 @@ def maxsim_scores_int8_doc(
     queries: torch.Tensor,      # (B, Lq, D) float/bf16
     emb_flat: torch.Tensor,     # (N * L, D) int8, "int8-doc" layout
     doc_scales: torch.Tensor,   # (N,) float32 per-document scale
-    doc_lengths: torch.Tensor,  # (N,) int32 — the kernel skips rows past it
+    doc_lengths: torch.Tensor,  # (N,) int32 — chunks past it are skipped
     *,
     doc_len: int,
 ) -> torch.Tensor:              # (B, N) float32
     """Full int8-doc scan (csrc/maxsim_int8_doc.cu on the card). The
-    kernel skips the rows past each doc's length, which the layout holds
-    as copies of row 0, so the result is the plain version's."""
+    kernel multiplies every stored row of each 64-row chunk that starts
+    before the doc's length and skips the rest: the layout holds the rows
+    past the length as copies of row 0, so the result is the plain
+    version's, and a zero-length doc scores exactly 0."""
     if not _on_card(emb_flat):
         return maxsim_scores_int8_doc_reference(
             queries, emb_flat, doc_scales, doc_lengths, doc_len=doc_len)

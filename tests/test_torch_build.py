@@ -32,11 +32,11 @@ def test_library_key_covers_included_headers(tmp_path):
 
 
 def test_every_kernel_source_hashes_its_header():
-    """The mma.sync scans include the shared mma header; the wgmma int8
-    and int4 scans include the Hopper wrappers header."""
+    """The mma.sync bf16 scan includes the mma header; the wgmma int8,
+    int8-doc and int4 scans include the Hopper wrappers header."""
     for name, header in (("maxsim", "maxsim_mma.cuh"),
                          ("maxsim_int8", "sm90.cuh"),
-                         ("maxsim_int8_doc", "maxsim_mma.cuh"),
+                         ("maxsim_int8_doc", "sm90.cuh"),
                          ("maxsim_int4_group", "sm90.cuh")):
         names = [p.name for p in _build._sources(name, _build.CSRC)]
         assert names == [f"{name}.cu", header]

@@ -295,6 +295,52 @@ def test_int4_doc_plain_version_matches_pallas(b, doc_len, n, dim):
     np.testing.assert_allclose(ts[:, live], oracle[:, live], **TOL)
 
 
+@pytest.mark.parametrize("doc_len", [96, 128, 160])
+def test_int8_doc_live_chunks_by_length_match_pallas(doc_len):
+    """The rule the CUDA int8-doc kernel scans by: only the 64-row chunks
+    that start before a doc's length are multiplied (the rest hold copies
+    of row 0), a 32-row last chunk (L % 64 == 32) fills both halves of
+    its 64-column product, and the doc scale multiplies the finished sum.
+    On lengths at every chunk edge that equals the Pallas kernel, which
+    takes every stored row, and zero-length docs score exactly 0."""
+    edges = (0, 1, 31, 32, 33, 63, 64, 65, 95, 96, 97, 127, 128, 129, 159,
+             160)
+    ends = [e for e in edges if e <= doc_len]
+    n, dim, b, lq = len(ends) + 3, 32, 2, 16
+    rng = np.random.default_rng(doc_len)
+    x = rng.standard_normal((n, doc_len, dim)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    lengths = np.array([ends[i % len(ends)] for i in range(n)], np.int32)
+    x *= (np.arange(doc_len)[None, :] < lengths[:, None])[..., None]
+    flat, sc = jq.quantize_int8_docs(jnp.asarray(x), jnp.asarray(lengths))
+    flat, sc = np.array(flat), np.array(sc)
+    q = _queries(doc_len, b, lq, dim)
+    qb = torch.from_numpy(q).to(torch.bfloat16).float().numpy()
+    rows = flat.reshape(n, doc_len, dim).astype(np.float32)
+    want = np.zeros((b, n), np.float32)
+    dead = 0
+    for d in range(n):
+        run = np.full(b * lq, -1e30, np.float32)
+        for c in range(0, doc_len, 64):
+            if c >= lengths[d]:
+                dead += 1
+                continue
+            tile = rows[d, c:c + 64]
+            if len(tile) == 32:
+                tile = np.concatenate([tile, tile])
+            run = np.maximum(run, (tile @ qb.reshape(-1, dim).T).max(axis=0))
+        if lengths[d] > 0:
+            want[:, d] = run.reshape(b, lq).sum(axis=1) * sc[d]
+    assert dead > n // 2
+    js = np.array(jm.maxsim_scores_int8_doc(
+        jnp.asarray(q), jnp.asarray(flat), jnp.asarray(sc),
+        jnp.asarray(lengths), doc_len=doc_len))
+    np.testing.assert_allclose(want, js, **TOL)
+    zero = lengths == 0
+    assert zero.any() and (want[:, zero] == 0.0).all()
+    assert (js[:, zero] == 0.0).all()
+
+
 @pytest.mark.parametrize("name", ["float", "int8_doc", "int4_doc"])
 def test_new_references_blocking_is_invisible(name):
     q = torch.from_numpy(_queries(5, 2, 16, 32))
