@@ -12,8 +12,10 @@ at doc lengths L = 32, 64, 96, 128, 160 and 256 (every multiple of 32
 is taken: a doc's last 64-row chunk is then 32 rows), the float kernels
 also on docs with nonzero rows past their length, which their content
 mask must score; the int4 and int8-doc kernels also at doc lengths on
-every edge of their chunks and groups; the int8, int8-doc and int4
-kernels 300 times over on an index that stays in L2), then serves
+every edge of their chunks and groups; the float kernels on docs whose
+rows are subnormal, which their mask must drop as XLA does; the int8,
+int8-doc, int4 and bf16 kernels 300 times over on an index that stays in
+L2), then serves
 batches of 8
 queries through ``HybridRetriever.retrieve_batch`` with the ``small``
 encoder preset (random weights from a seed), on both
@@ -72,9 +74,11 @@ N_TIMED_CALLS = 40
 # launches of each kernel at the main shape that must agree bit for bit
 # (the first is held against the plain version)
 N_REPEATS = 50
-# launches of each bulk-copy kernel on a small index that stays in L2
+# launches of each bulk- or tensor-copy kernel on a small index that stays
+# in L2
 N_STRESS = 300
-STRESS_KERNELS = ("maxsim_int8", "maxsim_int4_group", "maxsim_int8_doc")
+STRESS_KERNELS = ("maxsim_int8", "maxsim_int4_group", "maxsim_int8_doc",
+                  "maxsim_bf16")
 # kernel vs plain version: fp32 sums in other orders (products are exact)
 RTOL, ATOL = 1e-5, 1e-3
 # published dense peaks: (bf16 tensor FLOP/s, HBM bytes/s, fp32 FLOP/s on
@@ -410,8 +414,9 @@ def kernel_launcher(kernel, csrc, q, emb, scales, doc_scales, lengths,
 
 
 def stress_index(kernel, gen, device, b, doc_len, n, dim):
-    """The stress phase's index of ``kernel``'s layout and its queries.
-    -> (q, emb, scales, doc_scales, lengths)"""
+    """The stress phase's index of ``kernel``'s layout (rows past each
+    length zero) and its queries. -> (q, emb, scales, doc_scales,
+    lengths)"""
     import torch
     from hybrid_rag_colbertv2_tpu_torch.ops.quant import (
         quantize_int4_groups, quantize_int8_docs, quantize_int8_rows)
@@ -428,6 +433,8 @@ def stress_index(kernel, gen, device, b, doc_len, n, dim):
     if kernel == "maxsim_int8":
         emb, scales = quantize_int8_rows(x.reshape(-1, dim))
         return q, emb, scales, None, lengths
+    if kernel == "maxsim_bf16":
+        return q, x.reshape(-1, dim).to(torch.bfloat16), None, None, lengths
     quantize = (quantize_int8_docs if kernel == "maxsim_int8_doc"
                 else quantize_int4_groups)
     emb, doc_scales = quantize(x, lengths)
@@ -435,13 +442,13 @@ def stress_index(kernel, gen, device, b, doc_len, n, dim):
 
 
 def phase_stress(device, variants):
-    """Each bulk-copy kernel (``STRESS_KERNELS``) N_STRESS times on a
-    small index that stays in L2 (B=8, Lq=32, L=128, N=3001, D=128), where
-    bulk copies land fast: each launch must agree with the plain version
-    and bit for bit with the first (the int8-doc index's zero-length
-    docs exactly 0). Without a proxy fence between a warp's reads of a
-    copied stage and the bulk copy that refills it, most int4 launches
-    here scored wrong. Each ``--variant`` of these kernels takes the same
+    """Each bulk- or tensor-copy kernel (``STRESS_KERNELS``) N_STRESS
+    times on a small index that stays in L2 (B=8, Lq=32, L=128, N=3001,
+    D=128), where copies land fast: each launch must agree with the plain
+    version and bit for bit with the first (the int8-doc index's
+    zero-length docs exactly 0). Without a proxy fence between a warp's
+    reads of a copied stage and the copy that refills it, most int4
+    launches here scored wrong. Each ``--variant`` of these kernels takes the same
     launches; its failures are counted, not fatal."""
     import torch
     from hybrid_rag_colbertv2_tpu_torch.ops import _build
@@ -482,7 +489,10 @@ def phase_float_skip(device):
     version on docs whose last nonzero row sits at every offset around
     the 8-row groups and 64-row chunks, on docs with nonzero rows past
     their length (the plain version scores them: a skip by length would
-    drop them) and on docs with zero rows inside their length."""
+    drop them), on docs with zero rows inside their length, and on docs
+    whose rows inside their length are all subnormal (masked, as XLA
+    counts subnormal values as zero) but for one row with one normal
+    value among subnormals (which counts)."""
     import torch
     from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as ms
     gen = torch.Generator(device=device).manual_seed(2)
@@ -508,9 +518,19 @@ def phase_float_skip(device):
                       (18, range(8, 16)), (19, range(120, 128))):
         assert max(rows) < int(lengths[doc]), (doc, rows)
         x[doc, list(rows)] = 0.0
+    # rows of subnormal values (+-1e-40 .. 1e-38) inside the length: masked
+    # in docs 30, 40 and 43 (15, 72, 128 rows); doc 41 (73 rows) also
+    # holds one normal value, in row 70, which counts
+    sub_docs, mixed = (30, 40, 43), (41, 70)
+    for doc in (*sub_docs, mixed[0]):
+        ln = int(lengths[doc])
+        mag = torch.rand(ln, dim, generator=gen, device=device) * 1e-38 + 1e-40
+        x[doc, :ln] = torch.where(torch.rand(ln, dim, generator=gen,
+                                             device=device) < 0.5, -mag, mag)
+    x[mixed[0], mixed[1], 5] = 0.5
     docs_past = sorted({d for d, _ in past})
     zero_docs = [d for d in range(n)
-                 if lengths[d] == 0 and d not in docs_past]
+                 if lengths[d] == 0 and d not in docs_past] + list(sub_docs)
     oracle = ms.maxsim_scores_exact(q, x, lengths)
     for kernel in FLOAT_KERNELS:
         dtype = torch.float32 if kernel == "maxsim_f32" else torch.bfloat16
@@ -520,15 +540,19 @@ def phase_float_skip(device):
         ref = scan(kernel, "plain", q, emb, None, None, lengths, doc_len)
         err, same = compare(out, ref, 100)
         if not (out[:, zero_docs] < -1e31).all():
-            raise AssertionError(f"{kernel}: all-zero docs must score "
-                                 "-1e30 * Lq")
+            raise AssertionError(f"{kernel}: all-zero and all-subnormal "
+                                 "docs must score -1e30 * Lq")
+        if not (out[:, mixed[0]] > -1e3).all():
+            raise AssertionError(f"{kernel}: a normal value among "
+                                 "subnormals must count")
         if not (out[0, docs_past] > oracle[0, docs_past] + 0.5).all():
             raise AssertionError(f"{kernel}: rows past a doc's length must "
                                  "count")
         log(f"kernel {kernel} skip by content, L={doc_len} N={n}: "
             f"max_abs_err={err:.3e} top100_ids_equal={same}; "
-            f"{len(zero_docs)} all-zero docs at -1e30*Lq, rows past the "
-            f"length counted in docs {docs_past}")
+            f"{len(zero_docs)} all-zero or all-subnormal docs at "
+            f"-1e30*Lq, a normal value among subnormals counted, rows past "
+            f"the length counted in docs {docs_past}")
 
 
 def build_lexical(n_docs: int, seed: int):
@@ -852,8 +876,11 @@ def main() -> int:
                                 r"stores", ptxas):
             k = re.search(r"Li(\d+)E", fn)
             spills.append((k.group(1) if k else fn[:40], n))
+        serial = re.findall(r"(?m)^.*wgmma.*serialized.*$", ptxas)
         log(f"ptxas {src}: {len(regs)} kernels, {min(regs)}-{max(regs)} "
-            f"registers, spills: {spills or 'none'}")
+            f"registers, spills: {spills or 'none'}"
+            + (f"; {len(serial)} wgmma serialised: {serial[0][:200]}"
+               if serial else ""))
 
     # -- phase 2: each kernel vs its plain version at small shapes ------
     phase_kernel_small(device)

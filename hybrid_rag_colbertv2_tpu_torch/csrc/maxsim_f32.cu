@@ -6,8 +6,10 @@
 //
 //   score[b, n] = sum_i max_j ( |e[n, j]|_1 > 0 ? q[b, i] . e[n, j] : -1e30 )
 //
-// over the doc's L stored rows j: a row whose elements are all +-0 is
-// masked (the TPU kernel's zero-L1-norm test). The mask is read from the
+// over the doc's L stored rows j: a row none of whose elements has a
+// nonzero exponent field (all +-0 or subnormal) is masked (the TPU
+// kernel's zero-L1-norm test under XLA, which counts subnormal values as
+// zero). The mask is read from the
 // rows, never from doc lengths: a nonzero row past a doc's length counts.
 // Products and sums are fp32 FFMA on the CUDA cores: mma.sync and wgmma
 // take no fp32 operands and TF32 would round them. Zero-length docs score
@@ -35,7 +37,8 @@
 //    it had copied itself, ran slower on the H100. The loop's indices
 //    advance by addition: no division per chunk.
 //  * Once a chunk has landed, 4 threads per row OR its staged words
-//    (& 0x7fffffff) and a ballot publishes the chunk's 64-bit row mask.
+//    (& 0x7f800000: some exponent bit) and a ballot publishes the
+//    chunk's 64-bit row mask.
 //    Thread (warp w, lane = 8 lc + lr) owns rows 8 i + lr, i < 8, and
 //    columns 32 w + 4 lc + {0..3, 16..19}, an 8 x 8 register tile. Only
 //    the 8-row groups up to the chunk's last nonzero row are multiplied
@@ -261,7 +264,7 @@ maxsim_f32_kernel(const float* __restrict__ q,    // (B*Lq, D)
         const uint4 x = w[v];
         nz |= x.x | x.y | x.z | x.w;
       }
-      nz &= 0x7fffffffu;
+      nz &= 0x7f800000u;
       nz |= __shfl_xor_sync(0xffffffffu, nz, 1);
       nz |= __shfl_xor_sync(0xffffffffu, nz, 2);
       const uint32_t votes = __ballot_sync(0xffffffffu, nz != 0);  // bit 4 j: row 8 warp + j

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks for the port's hand-written kernels:
-// mbarriers, bulk asynchronous copies, proxy fences, wgmma shared-memory
-// descriptors and the register-A wgmma products, register reallocation.
+// mbarriers, bulk asynchronous and tensor (TMA) copies, proxy fences,
+// wgmma shared-memory descriptors and the register-A wgmma products,
+// register reallocation.
 // Thin wrappers over PTX, one instruction each (PTX ISA 8.x,
 // "Asynchronous operations", "mbarrier", "wgmma"); and what the wgmma
 // scans share besides: an uncached load, the exact int8 -> bf16
@@ -86,6 +87,26 @@ __device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src, uint32
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// One box of the 2-D tensor that the tensor map `map` describes (in
+// parameter, constant or global memory), at element coordinates (x, y),
+// innermost first, into this block's shared memory, completing on `bar`
+// as transaction bytes: the whole box, its out-of-bounds elements (filled
+// with zeros) included.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int x, int y,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Brings a tensor map into the cache ahead of its first copy.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
 }
 
 // Orders this thread's generic-proxy shared-memory accesses before later

@@ -7,7 +7,8 @@ over the document's valid token rows, fp32 accumulation. The fp32 oracle
 (``maxsim_scores_exact``) and one full scan per index layout, each the
 hand-written CUDA kernel that replaces its Pallas kernel:
 
-  ``maxsim_scores``           bf16 rows          csrc/maxsim.cu
+  ``maxsim_scores``           bf16 rows          csrc/maxsim.cu (wgmma,
+                                                 TMA, on csrc/sm90.cuh)
                               f32 rows           csrc/maxsim_f32.cu
                               (``_maxsim_kernel``)
   ``maxsim_scores_int8``      int8, row scales   csrc/maxsim_int8.cu
@@ -28,7 +29,8 @@ Each takes any doc length L that is a multiple of 32 (a doc's last
 Masking convention (shared with the JAX package):
   * the int8 scan masks a token row by its scale (padding rows are
     all-zero, so their scale is 0), the float scan by its content (a row
-    whose elements are all zero); both give it -1e30 before the max.
+    whose elements all lie below 2**-126: zeros, and subnormals, which
+    XLA counts as zero); both give it -1e30 before the max.
     Zero-length docs score -1e30 * Lq and never enter top-k;
   * the int8-doc and int4-doc layouts store padding rows as copies of a
     valid row (ops/quant.py), so their scans need no mask; zero-length
@@ -45,7 +47,7 @@ from typing import Optional
 import torch
 
 from . import _build
-from .quant import unpack_int4_pairs
+from .quant import flush_subnormal, unpack_int4_pairs
 
 NEG_INF = -1e30
 
@@ -91,8 +93,10 @@ def maxsim_scores_reference(
 
     Same arithmetic as ``_maxsim_kernel``: the query is cast to the index
     dtype (``ops/maxsim.py:196`` of the JAX package); products and sums in
-    fp32; a row whose elements are all zero (zero L1 norm) gets -1e30
-    added before the max over L; then the sum over each query's Lq rows.
+    fp32, subnormal row elements counted as zero as XLA does; a row whose
+    elements are then all zero (zero L1 norm: none has |x| >= 2**-126)
+    gets -1e30 added before the max over L; then the sum over each
+    query's Lq rows.
     fp32 matmuls must not run in TF32 (``utils/device.set_fp32_matmul_exact``)."""
     b, lq, d = queries.shape
     n = doc_lengths.shape[0]
@@ -102,7 +106,8 @@ def maxsim_scores_reference(
     nb = _block_docs(doc_len, blq, d, block_docs)
     for s in range(0, n, nb):
         e = min(n, s + nb)
-        rows = emb_flat[s * doc_len:e * doc_len].to(torch.float32)
+        rows = flush_subnormal(
+            emb_flat[s * doc_len:e * doc_len].to(torch.float32))
         sims = rows @ q.T                                 # (rows, B*Lq)
         live = (rows != 0).any(dim=1, keepdim=True)
         sims = sims + torch.where(live, 0.0, NEG_INF)

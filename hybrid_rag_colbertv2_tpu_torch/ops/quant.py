@@ -13,7 +13,10 @@ The bytes and scales are bit-equal to the JAX version: the same fp32
 arithmetic, rounding half to even (``jnp.round`` / ``torch.round``), and
 the clips. XLA folds the JAX version's ``absmax / 127.0`` and
 ``absmax / 7.0`` into a multiply by the fp32 reciprocal; the port does
-the same (``x / safe`` stays a true division on both sides).
+the same (``x / safe`` stays a true division on both sides). XLA also
+counts subnormal values as zero; the port flushes the input and the
+scale (``flush_subnormal``), so a row whose absmax / 127 is subnormal
+gets scale 0 and codes 0 on both sides.
 """
 
 from __future__ import annotations
@@ -23,15 +26,29 @@ from typing import Tuple
 import torch
 
 
+def flush_subnormal(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` with every element of magnitude below 2**-126 (the
+    subnormals, and -0) set to +0.
+
+    XLA, which runs the JAX package, treats subnormal fp32 inputs as zero
+    and flushes subnormal results to zero: on the CPU its quantizers give
+    a row of 1e-40, or of 3e-38 (absmax / 127 is subnormal), scale 0 and
+    codes 0, and its float scan masks a row of subnormals like a row of
+    zeros (tests/test_torch_quant.py, tests/test_torch_maxsim.py). The
+    port applies it where those results depend on it."""
+    tiny = torch.finfo(torch.float32).tiny      # the least normal fp32
+    return torch.where(x.abs() < tiny, torch.zeros_like(x), x)
+
+
 def quantize_int8_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize (rows, D) -> int8 values + per-row fp32 scales.
 
     Symmetric absmax quantization: v = round(x / scale), scale = absmax/127.
     All-zero rows (padding tokens) get scale 0 so they dequantize to 0.
     """
-    x = x.to(torch.float32)
+    x = flush_subnormal(x.to(torch.float32))
     absmax = x.abs().amax(dim=-1)                               # (rows,)
-    scale = absmax * (1.0 / 127.0)
+    scale = flush_subnormal(absmax * (1.0 / 127.0))
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(x / safe[:, None]), -127, 127)
     return q.to(torch.int8), scale
@@ -52,10 +69,10 @@ def quantize_int8_docs(
     Padded token rows are stored as copies of the doc's row 0, so the
     max over all L rows equals the max over the valid ones; zero-length
     docs stay all-zero with scale 0 and score exactly 0."""
-    x = embs3.to(torch.float32)
+    x = flush_subnormal(embs3.to(torch.float32))
     n, l, d = x.shape
     absmax = x.abs().amax(dim=(1, 2))                           # (N,)
-    scale = absmax * (1.0 / 127.0)
+    scale = flush_subnormal(absmax * (1.0 / 127.0))
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(x / safe[:, None, None]), -127, 127)
     tok = torch.arange(l, device=x.device)
@@ -93,14 +110,14 @@ def quantize_int4_groups(
     group copies the doc's row 0 and takes group 0's scale; zero-length
     docs stay all-zero with all scales 0. The scales keep the doc axis
     minor, as the JAX package stores them."""
-    x = embs3.to(torch.float32)
+    x = flush_subnormal(embs3.to(torch.float32))
     n, l, d = x.shape
     g = int4_group_size(l, group)
     ng = l // g
     lengths = lengths.to(x.device)
     xg = x.reshape(n, ng, g, d)
     absmax = xg.abs().amax(dim=(2, 3))                          # (N, G)
-    scale = absmax * (1.0 / 7.0)
+    scale = flush_subnormal(absmax * (1.0 / 7.0))
     safe = torch.where(scale > 0, scale, torch.ones_like(scale))
     q = torch.clamp(torch.round(xg / safe[:, :, None, None]), -7, 7
                     ).to(torch.int32)                           # (N,G,g,D)

@@ -495,3 +495,45 @@ def test_packed_candidate_sims_interleave_tokens():
     sims = tp.candidate_sims(q, docs, packed_pairs=True)
     full = tq.unpack_int4_pairs(docs).float()
     assert torch.equal(sims, tp.candidate_sims(q, full))
+
+
+# --- subnormal values count as zero, as in XLA -------------------------
+
+@pytest.mark.parametrize("case,want", [
+    ("repro", -64.0),          # row 0 1e-40, row 1 0.5: row 1 alone counts
+    ("all_subnormal", None),   # every row subnormal: -1e30 per query row
+    ("mixed_row", -2.0),       # one normal value among subnormals counts
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_float_plain_counts_subnormals_as_zero(dtype, case, want):
+    """A row whose elements are all subnormal is masked like a zero row
+    (XLA counts subnormal values as zero: the TPU kernel's L1 norm is 0),
+    in bf16 rows (the same exponent range) and fp32 rows; a row with one
+    normal value counts. Doc 1 is ordinary."""
+    dim, doc_len, lq = 16, 32, 8
+    x = np.zeros((2, doc_len, dim), np.float32)
+    sub = np.where(np.arange(dim) % 2 == 0, 1e-40, -3e-40).astype(np.float32)
+    if case == "repro":
+        x[0, 0] = 1e-40
+        x[0, 1] = 0.5
+    elif case == "all_subnormal":
+        x[0, :20] = sub
+    else:
+        x[0, 0:4] = sub
+        x[0, 5] = sub
+        x[0, 5, 3] = 0.25
+    rng = np.random.default_rng(3)
+    x[1, :24] = rng.standard_normal((24, dim))
+    lengths = np.array([doc_len, 24], np.int32)
+    q = -np.ones((1, lq, dim), np.float32)
+    flat = x.reshape(2 * doc_len, dim)
+    js = np.array(jm.maxsim_scores(jnp.asarray(q), jnp.asarray(flat).astype(
+        dtype), jnp.asarray(lengths), doc_len=doc_len))
+    ts = tm.maxsim_scores(torch.from_numpy(q), torch.from_numpy(flat).to(
+        getattr(torch, dtype)), torch.from_numpy(lengths),
+        doc_len=doc_len).numpy()
+    np.testing.assert_allclose(ts, js, **TOL)
+    if want is None:
+        np.testing.assert_allclose(ts[0, 0], -1e30 * lq, rtol=1e-6)
+    else:
+        assert ts[0, 0] == want

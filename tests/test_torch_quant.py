@@ -122,3 +122,65 @@ def test_quantize_int4_groups_bit_equal(doc_len):
         assert torch.equal(full[1, g:], full[1, :1].expand(doc_len - g, 16))
         assert (ts_[1:, 1] == ts_[0, 1]).all()
     assert full.min() >= -7 and full.max() <= 7
+
+
+# --- subnormal values count as zero, as in XLA -------------------------
+
+def _subnormal_docs(case):
+    """(4, 16, 16) fp32 docs, lengths (16, 16, 9, 16): docs 0-2 hold the
+    case's values (rows past a length zero), doc 3 ordinary values.
+    ``all_subnormal``: every value +-1e-40; ``scale_subnormal``: +-3e-38,
+    normal, but absmax / 127 and / 7 are subnormal; ``mixed``: subnormal
+    values beside small normal ones whose scale is subnormal."""
+    rng = np.random.default_rng(7)
+    sign = np.where(rng.random((4, 16, 16)) < 0.5, -1.0, 1.0)
+    if case == "all_subnormal":
+        mag = np.full((4, 16, 16), 1e-40)
+    elif case == "scale_subnormal":
+        mag = np.full((4, 16, 16), 3e-38)
+    else:
+        tiny = rng.uniform(1e-41, 1e-39, (4, 16, 16))
+        small = rng.uniform(1.2e-38, 5e-38, (4, 16, 16))
+        mag = np.where(np.arange(16) % 2 == 0, tiny, small)
+    x = (sign * mag).astype(np.float32)
+    x[3] = rng.standard_normal((16, 16)).astype(np.float32)
+    lengths = np.array([16, 16, 9, 16], np.int32)
+    x *= (np.arange(16)[None, :] < lengths[:, None])[..., None]
+    return x, lengths
+
+
+@pytest.mark.parametrize("case", ["all_subnormal", "scale_subnormal",
+                                  "mixed"])
+@pytest.mark.parametrize("quantizer", ["int8_rows", "int8_docs",
+                                       "int4_groups"])
+def test_quantizers_count_subnormals_as_zero(quantizer, case):
+    """The three quantizers equal XLA's bit for bit where a value or a
+    scale is subnormal: both are zero there, so such a row, doc or group
+    gets scale 0 and codes 0."""
+    x, lengths = _subnormal_docs(case)
+    if quantizer == "int8_rows":
+        jv, js = jq.quantize_int8_rows(jnp.asarray(x.reshape(-1, 16)))
+        tv, ts = tq.quantize_int8_rows(torch.from_numpy(x.reshape(-1, 16)))
+    else:
+        args = (x, lengths)
+        jv, js = getattr(jq, f"quantize_{quantizer}")(
+            *(jnp.asarray(a) for a in args))
+        tv, ts = getattr(tq, f"quantize_{quantizer}")(
+            *(torch.from_numpy(a) for a in args))
+    assert np.array_equal(np.asarray(jv), tv.numpy())
+    assert np.array_equal(_bits(js), _bits(ts.numpy()))
+    # docs 0-2 hold no normal scale: their scales and codes are all 0
+    per_doc = ts.reshape(4, -1) if quantizer == "int8_rows" else ts.reshape(
+        -1, 4).T
+    assert (per_doc[:3] == 0).all() and (per_doc[3] > 0).all()
+    codes = tv.reshape(4, -1)
+    assert (codes[:3] == 0).all() and (codes[3] != 0).any()
+
+
+def test_flush_subnormal():
+    tiny = torch.finfo(torch.float32).tiny
+    x = torch.tensor([1e-40, -1e-40, -0.0, tiny, -tiny, 3e-38, 0.5,
+                      float("inf")])
+    y = tq.flush_subnormal(x)
+    assert torch.equal(y, torch.cat([torch.zeros(3), x[3:]]))
+    assert not torch.signbit(y[:3]).any()          # +0 throughout
