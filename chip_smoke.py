@@ -33,10 +33,26 @@ Token rows are generated on the card in doc blocks and laid out by the
 port's own quantizers, so each layout's padding contract holds. Any failed
 check raises and exits non-zero.
 
-It also prints the p50 and p90 latency of each layout and route, each
-kernel's time beside its bound and its plain version's time, and (last, so
-tracing does not touch the timings) each route's device time by kernel
-from torch.profiler. Stdout ends with the ``{"kernels": [...]}`` summary
+``retrieve_batch`` serves each batch through ``fused_cascade_fn``: the
+encoder and the cascade captured once per (batch, term width) as a CUDA
+graph and replayed. The counted run of each route drops its cached
+entries first, so the wrappers count the warm-up and the capture of each
+graph (two per graph); the profiler counts the kernels each replay
+launches. Every layout and route must give the eager path's ids and
+scores (bit-equal, or the largest difference held to RTOL, ATOL); two
+threads on one retriever must get what each gets alone; a mid-size int8
+index grown by ``IndexManager.add_documents`` under a live retriever must
+serve the new doc first through a new graph and release the old index's
+memory; ``append`` and ``convert`` on a 600-doc index must give the CPU's
+results on the card; the 100k int8 index is converted to int4-doc and to
+bfloat16 (seconds); the bf16 encoder is held against the CPU.
+
+It also prints the p50 and p90 latency of each layout and route through
+the graphs and eagerly (interleaved, with the captures during the timed
+calls, which must be 0), each kernel's time beside its bound and its
+plain version's time, and (last, so tracing does not touch the timings)
+each route's device time by kernel, busy share and host-side launches
+per call from torch.profiler, graph and eager. Stdout ends with the ``{"kernels": [...]}`` summary
 line, the card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -54,12 +70,15 @@ build, in two passes.
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import weakref
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
@@ -105,6 +124,17 @@ KERNELS = {
                    "maxsim_f32.cu", 120),
 }
 LAYOUT_KERNEL = {v[0]: k for k, v in KERNELS.items()}
+# each kernel's __global__ function, as the profiler names its launches
+KERNEL_SYMBOL = {"maxsim_int8": "maxsim_int8_kernel",
+                 "maxsim_int8_doc": "maxsim_int8_doc_kernel",
+                 "maxsim_int4_group": "maxsim_int4_kernel",
+                 "maxsim_bf16": "maxsim_bf16_kernel",
+                 "maxsim_f32": "maxsim_f32_kernel"}
+# the mid-size int8 index that add_documents grows under a live retriever
+N_DOCS_ADD = 20_000
+# bf16 activations against fp32 parameters on the CPU: about one bf16 ulp
+# (2^-8 of a unit-norm row's element) per encoder layer, as in the tests
+BF16_ATOL_PER_LAYER = 2.0**-8
 FLOAT_KERNELS = ("maxsim_bf16", "maxsim_f32")
 WRAPPERS = ("maxsim_scores", "maxsim_scores_int8", "maxsim_scores_int8_doc",
             "maxsim_scores_int4_doc")
@@ -620,25 +650,40 @@ def make_paths(device, encoder, gen):
     return paths
 
 
+def drop_entries(dense) -> None:
+    """Drop every cached fused entry (and its graphs) over ``dense``."""
+    from hybrid_rag_colbertv2_tpu_torch.retrieval import cascade
+    ids = {id(dense.emb_flat)}
+    cascade._FUSED_CACHE.drop_where(lambda _k, e: e.reads_any(ids))
+
+
 def run_path(layout, path) -> int:
     """The counted run of one layout's main path: 3 batches per route,
-    the counts set to 0 just before each route and read just after.
+    the counts set to 0 just before each route and read just after. The
+    layout's fused entries are dropped first, so the run captures its
+    graph: the route-0 wrapper counts the eager warm-up and the capture
+    of its kernel, two per graph, and the replays launch it from the
+    graph (the profiler counts those, ``profile_calls``).
     -> launches of the layout's kernel on route 0."""
     import numpy as np
     import torch
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
     wrapper = KERNELS[LAYOUT_KERNEL[layout]][1]
     n_docs = path["dense"].n_docs
     launches = 0
     for p, r in path["routes"].items():
+        drop_entries(path["dense"])
         reset_launch_counts()
+        caps = FusedCascade.captures
         outs = [r.retrieve_batch(b) for b in path["batches"]]
         torch.cuda.synchronize()
         counts = launch_counts()
-        want = {w: (len(outs) if p == 0 and w == wrapper else 0)
+        caps = FusedCascade.captures - caps
+        want = {w: (2 * caps if p == 0 and w == wrapper else 0)
                 for w in WRAPPERS}
-        if counts != want:
-            raise AssertionError(f"{layout} route {p}: launches {counts}, "
-                                 f"want {want}")
+        if caps < 1 or counts != want:
+            raise AssertionError(f"{layout} route {p}: launches {counts} "
+                                 f"over {caps} captures, want {want}")
         if p == 0:
             launches = counts[wrapper]
         for ids, scores in outs:
@@ -649,12 +694,242 @@ def run_path(layout, path) -> int:
                 raise AssertionError(f"non-finite scores on {layout} "
                                      f"route {p}")
         rank1 = int(outs[0][0][0, 0])
-        log(f"{layout} dense_prefilter={p}: launches {counts[wrapper]} of "
-            f"{wrapper} over {len(outs)} batches; planted doc {PLANTED_DOC}"
-            f" -> rank-1 id {rank1}")
+        log(f"{layout} dense_prefilter={p}: {caps} graph(s) captured over "
+            f"{len(outs)} batches, {counts[wrapper]} counted launches of "
+            f"{wrapper} (warm-up and capture); planted doc {PLANTED_DOC} "
+            f"-> rank-1 id {rank1}")
         if rank1 != PLANTED_DOC:
             raise AssertionError("planted query must return its doc first")
     return launches
+
+
+def eager_batch(r, batch):
+    """``retrieve_batch``'s work with its fused entry run eagerly, op by
+    op: tokenize, then encoder + cascade. -> (ids, scores) numpy"""
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        pack_query_batch)
+    cfg = r.config
+    fused = r._build_fused(min(cfg.final_top_k, cfg.fusion_candidates,
+                               r.indexes.dense.n_docs))
+    packed = pack_query_batch(r.encoder, r.indexes.lexical, batch,
+                              cfg.query_max_terms, cfg.query_term_buckets)
+    return fused.eager(packed)
+
+
+def phase_graph_vs_eager(paths) -> None:
+    """Every layout and route: the graph replay and the eager run of the
+    same entry give equal ids and bit-equal scores (else the largest
+    difference, held to RTOL, ATOL: an algorithm that cuBLAS picks under
+    capture may sum in another order)."""
+    import numpy as np
+    for lay, path in paths.items():
+        for p, r in path["routes"].items():
+            worst, bit_equal = 0.0, True
+            for b in path["batches"]:
+                gi, gs = r.retrieve_batch(b)
+                ei, es = eager_batch(r, b)
+                if not np.array_equal(gi, ei):
+                    raise AssertionError(f"{lay} route {p}: graph ids "
+                                         f"{gi} vs eager {ei}")
+                if not np.allclose(gs, es, rtol=RTOL, atol=ATOL):
+                    raise AssertionError(f"{lay} route {p}: graph scores "
+                                         "disagree with eager")
+                worst = max(worst, float(np.abs(gs - es).max()))
+                bit_equal &= bool(np.array_equal(gs, es))
+            log(f"graph vs eager {lay} dense_prefilter={p}: ids equal, "
+                f"scores bit-equal={bit_equal}, max |diff| {worst:.3e}")
+
+
+def phase_threads(path) -> None:
+    """Two threads on one retriever (route 0), 20 calls each on their
+    own batch, get the ids and scores each gets alone."""
+    import numpy as np
+    r = path["routes"][0]
+    batches = path["batches"][:2]
+    solo = [r.retrieve_batch(b) for b in batches]
+    wrong = []
+
+    def work(i):
+        for _ in range(20):
+            ids, scores = r.retrieve_batch(batches[i])
+            if not (np.array_equal(ids, solo[i][0])
+                    and np.array_equal(scores, solo[i][1])):
+                wrong.append(i)
+
+    threads = [threading.Thread(target=work, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    if any(t.is_alive() for t in threads) or wrong:
+        raise AssertionError(f"concurrent calls on one retriever: "
+                             f"{len(wrong)} of 40 differ from alone")
+    log("threads: 2 x 20 concurrent retrieve_batch calls on one retriever "
+        "give each batch's ids and scores alone, bit for bit")
+
+
+def phase_add_documents(device, encoder, gen) -> None:
+    """A live int8 retriever (route 0) over a mid-size index: after
+    ``IndexManager.add_documents`` appends a new chunk, the next call
+    rebinds, evicts the old binding's entries, captures a new graph and
+    ranks the new chunk first; the old index's tensors die and its bytes
+    leave ``torch.cuda.memory_allocated``."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
+    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    from hybrid_rag_colbertv2_tpu_torch.ops.prefilter import (
+        pooled_doc_embeddings)
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        FusedCascade, HybridRetriever)
+    n = N_DOCS_ADD
+    n_pad = ((n + 127) // 128) * 128
+    lex, corpus, queries = build_lexical(n, 2)
+    lengths, stores = random_layouts(gen, n_pad, DOC_LEN, DIM, device,
+                                     ("int8",), n_valid=n)
+    emb, scales, _ = stores.pop("int8")
+    pooled = pooled_doc_embeddings(emb, scales, lengths, doc_len=DOC_LEN)
+    root = REPO / "build" / "smoke_add"
+    cfg = RAGConfig(bm25_index_path=str(root / "bm25"),
+                    colbert_index_path=str(root / "colbert"),
+                    dense_prefilter=0, final_fusion="rerank",
+                    bm25_postings_cap=512)
+    mgr = IndexManager(cfg, encoder, device=device)
+    mgr.lexical, mgr.corpus = lex, corpus
+    mgr.dense = DenseTokenIndex(emb_flat=emb, doc_lengths=lengths, n_docs=n,
+                                doc_len=DOC_LEN, dim=DIM, scales=scales,
+                                pooled=pooled)
+    del emb, scales, lengths, pooled
+    r = HybridRetriever(cfg, mgr, encoder, device=device)
+    batch = queries[:BATCH]
+    r.retrieve_batch(batch)
+    torch.cuda.synchronize()
+    old_bytes = mgr.dense.memory_bytes()
+    alive = weakref.ref(mgr.dense.emb_flat)
+    before = torch.cuda.memory_allocated()
+    new_doc = "zyzzyva glossolalia xylophone quixotic marker chunk"
+    t0 = time.perf_counter()
+    mgr.add_documents(corpus + [new_doc])
+    t_add = time.perf_counter() - t0
+    caps = FusedCascade.captures
+    ids, _ = r.retrieve_batch([new_doc] + batch[1:])
+    caps = FusedCascade.captures - caps
+    torch.cuda.synchronize()
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    new_bytes = mgr.dense.memory_bytes()
+    log(f"add_documents: {n} -> {mgr.dense.n_docs} docs in {t_add:.2f}s "
+        f"(lexical rebuild, encode 1, append, save); next call captured "
+        f"{caps} graph(s), rank-1 id {int(ids[0, 0])}; memory_allocated "
+        f"{(after - before) / 2**20:+.1f} MiB with the old index "
+        f"{old_bytes / 2**20:.1f} MiB, the new {new_bytes / 2**20:.1f} MiB")
+    if int(ids[0, 0]) != n or caps < 1:
+        raise AssertionError("the appended chunk must rank first through a "
+                             "new graph")
+    if alive() is not None:
+        raise AssertionError("the old index is still referenced")
+    if after - before > new_bytes - old_bytes + 64 * 2**20:
+        raise AssertionError("the old index's memory was not released")
+    drop_entries(mgr.dense)
+
+
+def phase_maintenance_small(device) -> None:
+    """``append`` and ``convert`` of a 600-doc index (L = 64) in every
+    layout on the card and on the CPU: codes and lengths bit-equal,
+    scales within rtol 1e-6, the bf16 proxies within one bf16 ulp (fp32
+    token sums in other orders)."""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
+    layouts = ("int8", "int8-doc", "int4-doc", "bfloat16", "float32")
+    rng = np.random.default_rng(6)
+
+    def embs(n):
+        x = rng.standard_normal((n, 64, DIM)).astype(np.float32)
+        x /= np.linalg.norm(x, axis=-1, keepdims=True)
+        return x, rng.integers(0, 65, n).astype(np.int32)
+
+    def same(card, cpu, what):
+        for name in ("emb_flat", "doc_lengths", "scales", "doc_scales"):
+            a, b = getattr(card, name), getattr(cpu, name)
+            if (a is None) != (b is None):
+                raise AssertionError(f"{what}: {name} present on one side")
+            if a is None:
+                continue
+            a = a.cpu()
+            ok = (torch.allclose(a, b, rtol=1e-6, atol=0)
+                  if name.endswith("scales") else torch.equal(a, b))
+            if not ok:
+                raise AssertionError(f"{what}: {name} differs card vs CPU")
+        if not torch.allclose(card.pooled.cpu().float(), cpu.pooled.float(),
+                              rtol=2.0**-7, atol=1e-6):
+            raise AssertionError(f"{what}: pooled differs card vs CPU")
+
+    (x, ln), (x2, ln2) = embs(600), embs(77)
+    for src in layouts:
+        idx = {}
+        for dev in (device, torch.device("cpu")):
+            t = DenseTokenIndex.build(torch.from_numpy(x).to(dev),
+                                      torch.from_numpy(ln), doc_len=64,
+                                      dtype=src)
+            idx[dev.type] = t.append(torch.from_numpy(x2),
+                                     torch.from_numpy(ln2))
+        same(idx["cuda"], idx["cpu"], f"append {src}")
+        for dst in layouts:
+            if dst != src:
+                same(idx["cuda"].convert(dst, block=256),
+                     idx["cpu"].convert(dst, block=256),
+                     f"convert {src} -> {dst}")
+    log("append (600 + 77 docs) and convert (20 layout pairs) on the card "
+        "equal the CPU's: codes bit-equal, scales rtol 1e-6, proxies "
+        "within one bf16 ulp")
+
+
+def phase_convert_main(path) -> None:
+    """Seconds to convert the main 100k int8 index to int4-doc and to
+    bfloat16 on the card (4096-doc blocks, proxies included)."""
+    import torch
+    dense = path["dense"]
+    for dst in ("int4-doc", "bfloat16"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = dense.convert(dst)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        log(f"convert {dense.n_docs} docs x {dense.doc_len} int8 -> {dst} "
+            f"on the card: {secs:.3f} s ({out.memory_bytes() / 1e9:.2f} GB "
+            f"out)")
+        del out
+
+
+def phase_bf16_encoder(device) -> None:
+    """The ``small`` encoder with bf16 activations (fp32 parameters from
+    one seed) on the card against the CPU: queries and docs within
+    BF16_ATOL_PER_LAYER per layer."""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
+        ColBERTConfig, ColBERTEncoder)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import HashTokenizer
+    cfg = ColBERTConfig.small(vocab_size=8192, dtype=torch.bfloat16)
+    texts = [" ".join(f"term{(i * 37 + j) % 997}" for j in range(5 + i % 40))
+             for i in range(64)]
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        enc = ColBERTEncoder(cfg, HashTokenizer(8192), seed=0, device=dev)
+        q = enc.encode_queries(texts[:BATCH])
+        d, ln = enc.encode_docs(texts, doc_len=64)
+        if q.dtype != torch.bfloat16 or d.dtype != torch.bfloat16:
+            raise AssertionError("bf16 encoder must emit bf16")
+        out[dev.type] = (q.float().cpu().numpy(), d.float().cpu().numpy(),
+                         ln.cpu().numpy())
+    tol = BF16_ATOL_PER_LAYER * cfg.num_layers
+    errs = [float(np.abs(a - b).max())
+            for a, b in zip(out["cuda"][:2], out["cpu"][:2])]
+    if max(errs) > tol or not np.array_equal(out["cuda"][2], out["cpu"][2]):
+        raise AssertionError(f"bf16 encoder card vs CPU: {errs} > {tol}")
+    log(f"bf16 encoder (small, {cfg.num_layers} layers) card vs CPU: max "
+        f"|diff| queries {errs[0]:.3e}, docs {errs[1]:.3e} (limit {tol:.3e})")
 
 
 def check_dense_top100(layout, path, encoder, device):
@@ -895,14 +1170,11 @@ def main() -> int:
     from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
         ColBERTConfig, ColBERTEncoder)
     from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import HashTokenizer
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
     encoder = ColBERTEncoder(ColBERTConfig.small(vocab_size=8192),
                              HashTokenizer(8192), seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
     paths = make_paths(device, encoder, gen)
-    for path in paths.values():                 # first-use allocations
-        for r in path["routes"].values():
-            r.retrieve_batch(path["batches"][0])
-    torch.cuda.synchronize()
     launches = {LAYOUT_KERNEL[lay]: run_path(lay, path)
                 for lay, path in paths.items()}
     q_embs = {lay: check_dense_top100(lay, path, encoder, device)
@@ -912,37 +1184,95 @@ def main() -> int:
     for layout, n in check_small_cascade(device, list(paths)).items():
         log(f"small {layout} index, card vs CPU plain versions: final ids "
             f"agree ({n} slots swapped between tied scores)")
+    phase_graph_vs_eager(paths)
+    phase_threads(paths["int8"])
+    phase_maintenance_small(device)
+    phase_bf16_encoder(device)
 
     # -- phase 4: numbers (tracing off; the profile comes last) ----------
-    times = {(lay, p): [] for lay, path in paths.items()
-             for p in path["routes"]}
-    for i in range(N_TIMED_CALLS):             # layouts and routes interleaved
-        for (lay, p), ts in times.items():
+    routes = [(lay, p) for lay, path in paths.items() for p in path["routes"]]
+    for lay, p in routes:                      # every graph captured
+        paths[lay]["routes"][p].retrieve_batch(paths[lay]["batches"][0])
+    times = {(lay, p, how): [] for lay, p in routes
+             for how in ("graph", "eager")}
+    stages = {(lay, p): [] for lay, p in routes}   # the graph calls' split
+    caps = FusedCascade.captures
+    for i in range(N_TIMED_CALLS):      # layouts, routes, paths interleaved
+        for lay, p in routes:
             path = paths[lay]
-            t0 = time.perf_counter()
-            path["routes"][p].retrieve_batch(
-                path["batches"][i % len(path["batches"])])
-            ts.append((time.perf_counter() - t0) * 1e3)
+            r, batch = path["routes"][p], path["batches"][i % 3]
+            for how, call in (("graph", r.retrieve_batch),
+                              ("eager", lambda b, r=r: eager_batch(r, b))):
+                t0 = time.perf_counter()
+                call(batch)
+                times[(lay, p, how)].append(
+                    (time.perf_counter() - t0) * 1e3)
+            stages[(lay, p)].append(r.last_timings)
+    caps = FusedCascade.captures - caps
+    log(f"graph captures during the {N_TIMED_CALLS * len(routes)} timed "
+        f"graph calls: {caps}")
+    if caps:
+        raise AssertionError("the fused cache re-captured in the timed loop")
     lat = {}
-    for (lay, p), ts in times.items():
+    for (lay, p, how), ts in times.items():
         q = statistics.quantiles(ts, n=10)
-        lat[f"{lay}/{p}"] = {"p50": statistics.median(ts), "p90": q[-1]}
-        n_docs = paths[lay]["dense"].n_docs
-        log(f"retrieve_batch {lay} dense_prefilter={p}: p50 "
+        lat.setdefault(f"{lay}/{p}", {})[how] = {
+            "p50": statistics.median(ts), "p90": q[-1]}
+        log(f"retrieve_batch {lay} dense_prefilter={p} {how}: p50 "
             f"{statistics.median(ts):.3f} ms, p90 {q[-1]:.3f} ms (batch "
-            f"{BATCH}, {n_docs} chunks, host clock, {len(ts)} calls)")
-    rows = []
-    for kernel, (layout, _, _, src, line) in KERNELS.items():
-        nums = kernel_numbers(
-            kernel, paths[layout], q_embs[layout], peaks,
-            variants.get(kernel, ()))
-        rows.append({"name": kernel, "route": "cuda",
-                     "source": f"{PORT}/csrc/{src}",
-                     "replaces": f"{JAX_MAXSIM}:{line}",
-                     "launches": launches[kernel], **nums})
-    for lay, path in paths.items():
-        for p, r in path["routes"].items():
-            profile_route(f"{lay} dense_prefilter={p}", r, path["batches"])
+            f"{BATCH}, {paths[lay]['dense'].n_docs} chunks, host clock, "
+            f"{len(ts)} calls)")
+    for (lay, p), split in stages.items():
+        med = {n: statistics.median(t[n] for t in split) * 1e3
+               for n in ("tokenize", "encode+cascade")}
+        lat[f"{lay}/{p}"]["graph"].update(
+            tokenize_ms=med["tokenize"], replay_ms=med["encode+cascade"])
+        log(f"retrieve_batch {lay} dense_prefilter={p} graph, median "
+            f"stages: tokenize {med['tokenize']:.3f} ms, encode+cascade "
+            f"(copy in, replay, copy out) {med['encode+cascade']:.3f} ms")
+    nums = {kernel: kernel_numbers(kernel, paths[KERNELS[kernel][0]],
+                                   q_embs[KERNELS[kernel][0]], peaks,
+                                   variants.get(kernel, ()))
+            for kernel in KERNELS}
+    phase_convert_main(paths["int8"])
+    phase_add_documents(device, encoder, gen)
+    for lay, p in routes:                      # every graph captured
+        paths[lay]["routes"][p].retrieve_batch(paths[lay]["batches"][0])
+    graph_launches = {}
+    for lay, p in routes:
+        path = paths[lay]
+        r = path["routes"][p]
+        kernel = LAYOUT_KERNEL[lay]
+        prof = {how: profile_calls(f"{lay} dense_prefilter={p} {how}", fn,
+                                   path["batches"])
+                for how, fn in (("graph", r.retrieve_batch),
+                                ("eager", lambda b, r=r: eager_batch(r, b)))}
+        for how, pr in prof.items():
+            want = {k: (1.0 if p == 0 and k == kernel else 0.0)
+                    for k in KERNELS}
+            if pr["kernels"] != want:
+                raise AssertionError(f"{lay} route {p} {how}: kernel "
+                                     f"launches per call {pr['kernels']}, "
+                                     f"want {want}")
+            cell = lat[f"{lay}/{p}"][how]
+            # the busy share of the untraced p50 (tracing slows the host)
+            cell.update(device_ms=pr["device_ms"], span_ms=pr["span_ms"],
+                        busy=pr["device_ms"] / cell["p50"],
+                        device_ops=pr["device_ops"],
+                        host_launches=pr["host_launches"])
+            log(f"{lay} dense_prefilter={p} {how}: device "
+                f"{cell['device_ms']:.3f} ms/call, busy {cell['busy']:.1%} "
+                f"of the p50 {cell['p50']:.3f} ms, "
+                f"{cell['host_launches']:.0f} host-side launches/call")
+        if p == 0:
+            graph_launches[kernel] = prof["graph"]["kernels"][kernel]
+    rows = [{"name": kernel, "route": "cuda",
+             "source": f"{PORT}/csrc/{src}",
+             "replaces": f"{JAX_MAXSIM}:{line}",
+             "launches": launches[kernel],
+             "graph_launches_per_call": graph_launches[kernel],
+             **nums[kernel]}
+            for kernel, (_, _, _, src, line) in KERNELS.items()]
     print(json.dumps({"retrieve_batch_ms": lat, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -952,30 +1282,59 @@ def main() -> int:
     return 0
 
 
-def profile_route(label, retriever, batches, calls: int = 5) -> None:
-    """Device time per retrieve_batch by kernel name, and the device's
-    busy share of the wall time (torch.profiler, CUDA activity)."""
+# runtime calls that put work on the device: kernel and graph launches
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaGraphLaunch")
+
+
+def profile_calls(label, fn, batches, calls: int = 5) -> dict:
+    """``fn(batch)`` over ``calls`` batches under torch.profiler: device
+    time per call by kernel name, the device span of a call (first to
+    last op), device ops per call, host-side launches per call (kernel
+    and graph launches from the host), and launches per call of each
+    port kernel by its symbol."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # one traced warm-up call, discarded: a replay right at the start of
+    # tracing lost some of its kernels' records (int4-doc / 0 showed 0.8
+    # launches of its scan per call without it)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        fn(batches[0])
+        prof.step()
         t0 = time.perf_counter()
         for i in range(calls):
-            retriever.retrieve_batch(batches[i % len(batches)])
+            fn(batches[i % len(batches)])
+            prof.step()
         wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    events = prof.key_averages()
     # device-side entries only (kernels, copies): an operator's entry
     # repeats the device time of the kernels it launched
-    rows = [(e.self_device_time_total / 1e3 / calls, e.count // calls, e.key)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[0] > 0), reverse=True)
+    rows = [(e.self_device_time_total / 1e3 / calls, e.count / calls, e.key)
+            for e in events if e.device_type == cuda]
+    # a step's annotation on the device timeline: first to last op of a
+    # call, gaps included
+    span = sum(r[0] for r in rows if r[2].startswith("ProfilerStep"))
+    rows = sorted((r for r in rows
+                   if r[0] > 0 and not r[2].startswith("ProfilerStep")),
+                  reverse=True)
     busy = sum(r[0] for r in rows)
-    log(f"profile {label}: wall {wall_ms:.3f} ms/call, device "
-        f"{busy:.3f} ms/call (busy share {busy / wall_ms:.1%}), "
-        f"{sum(r[1] for r in rows)} device ops/call")
+    ops = sum(r[1] for r in rows)
+    host = sum(e.count for e in events
+               if e.device_type != cuda and e.key in LAUNCH_CALLS) / calls
+    kernels = {k: sum(e.count for e in events if e.device_type == cuda
+                      and re.search(rf"\b{sym}\b", e.key)) / calls
+               for k, sym in KERNEL_SYMBOL.items()}
+    log(f"profile {label}: traced wall {wall_ms:.3f} ms/call, device "
+        f"{busy:.3f} ms/call over a device span of {span:.3f} ms/call, "
+        f"{ops:.0f} device ops/call, {host:.0f} host-side launches/call")
     for ms_, n, key in rows[:8]:
-        log(f"  {ms_:8.3f} ms  x{n:<4d} {key[:90]}")
+        log(f"  {ms_:8.3f} ms  x{n:<6.1f} {key[:90]}")
+    return dict(wall_ms=wall_ms, device_ms=busy, span_ms=span,
+                device_ops=ops, host_launches=host, kernels=kernels)
 
 
 def check_small_cascade(device, layouts) -> dict:

@@ -14,8 +14,10 @@ modules it needs).
 
 Served so far: the flat index in every layout (int8, int8-doc,
 int4-doc, bfloat16, float32), both dense routes (``dense_prefilter`` > 0
-pruned, 0 full scan through the layout's CUDA MaxSim kernel). See
-ROADMAP.md for the rest.
+pruned, 0 full scan through the layout's CUDA MaxSim kernel), one CUDA
+graph replay per query batch (``retrieval/cascade.py::fused_cascade_fn``),
+incremental ``add_documents`` and layout ``convert``, fp32 or bf16
+encoder activations. See ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

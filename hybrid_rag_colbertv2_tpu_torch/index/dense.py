@@ -17,6 +17,7 @@ so an index saved by either package loads in the other.
 from __future__ import annotations
 
 import json
+import math
 import shutil
 from dataclasses import dataclass
 from pathlib import Path
@@ -37,6 +38,7 @@ from ..utils.device import DeviceLike, resolve_device
 
 _NP_NAMES = {torch.int8: "int8", torch.bfloat16: "bfloat16",
              torch.float32: "float32"}
+_FLOATS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def _round_up(x: int, m: int) -> int:
@@ -153,6 +155,106 @@ class DenseTokenIndex:
             if t is not None:
                 total += t.numel() * t.element_size()
         return total
+
+    def append(self, token_embs: torch.Tensor, lengths: torch.Tensor,
+               *, docs_pad_multiple: int = 128) -> "DenseTokenIndex":
+        """A new index with documents added after row ``n_docs``: the new
+        docs are laid out in the SAME doc_len and layout, the existing
+        rows, scales and proxies are reused untouched, and the padding
+        goes to ``docs_pad_multiple``. Old docs keep their ids, new docs
+        follow (global ids stay corpus row order)."""
+        new = DenseTokenIndex.build(
+            token_embs.to(self.device), lengths, doc_len=self.doc_len,
+            dtype=self.quant, docs_pad_multiple=docs_pad_multiple)
+        n1, n2 = self.n_docs, new.n_docs
+        ld = self.doc_len
+        rpd = ld // 2 if self.is_int4 else ld    # storage rows per doc
+        n_pad = _round_up(max(n1 + n2, 1), docs_pad_multiple)
+        pad = n_pad - (n1 + n2)
+
+        def cat(a, b, rows, dim=0):
+            """a[:n1 * rows] ‖ b[:n2 * rows] ‖ zero padding, on ``dim``."""
+            parts = [a.narrow(dim, 0, n1 * rows), b.narrow(dim, 0, n2 * rows)]
+            shape = list(a.shape)
+            shape[dim] = pad * rows
+            parts.append(a.new_zeros(shape))
+            return torch.cat(parts, dim=dim)
+
+        scales = doc_scales = None
+        if self.scales is not None:
+            scales = cat(self.scales, new.scales, ld)
+        if self.doc_scales is not None:      # int4 (G, N) on the doc axis
+            doc_scales = cat(self.doc_scales, new.doc_scales, 1,
+                             dim=self.doc_scales.dim() - 1)
+        return DenseTokenIndex(
+            emb_flat=cat(self.emb_flat, new.emb_flat, rpd),
+            doc_lengths=cat(self.doc_lengths, new.doc_lengths, 1),
+            n_docs=n1 + n2, doc_len=ld, dim=self.dim, scales=scales,
+            pooled=cat(self.ensure_pooled(), new.pooled, 1),
+            doc_scales=doc_scales)
+
+    def convert(self, dtype: str, *, block: int = 4096
+                ) -> "DenseTokenIndex":
+        """Requantize into layout ``dtype`` WITHOUT re-encoding the
+        corpus: block by block (``math.gcd(n_pad, block)`` docs each, the
+        JAX package's ``lax.map`` blocks), dequantize, zero the rows past
+        each length (the doc-scale layouts' copied padding rows), quantize
+        with ops/quant.py, then recompute the proxies. The fp32 working
+        set stays one block. Lossy layouts compose: int8 -> int4-doc is
+        quantize_int4(dequantize_int8(x)), not quantize_int4(original)."""
+        if dtype == self.quant:
+            return self
+        if dtype not in ("int8", "int8-doc", "int4-doc", *_FLOATS):
+            raise ValueError(f"unknown index dtype {dtype!r}")
+        n_pad, ld, d = self.n_pad, self.doc_len, self.dim
+        dev = self.device
+        rpd = ld // 2 if self.is_int4 else ld
+        blk = math.gcd(n_pad, max(1, block))
+        embs = self.emb_flat.reshape(n_pad, rpd, d)
+        tok = torch.arange(ld, device=dev)
+        out_rpd = ld // 2 if dtype == "int4-doc" else ld
+        flat = torch.empty((n_pad * out_rpd, d),
+                           dtype=_FLOATS.get(dtype, torch.int8), device=dev)
+        scales = doc_scales = None
+        if dtype == "int8":
+            scales = torch.empty((n_pad * ld,), dtype=torch.float32,
+                                 device=dev)
+        elif dtype == "int8-doc":
+            doc_scales = torch.empty((n_pad,), dtype=torch.float32,
+                                     device=dev)
+        elif dtype == "int4-doc":
+            doc_scales = torch.empty((ld // int4_group_size(ld), n_pad),
+                                     dtype=torch.float32, device=dev)
+        for s in range(0, n_pad, blk):
+            e = s + blk
+            ln = self.doc_lengths[s:e]
+            if self.is_int4:
+                x = unpack_int4_pairs(embs[s:e]).to(torch.float32)
+            else:
+                x = embs[s:e].to(torch.float32)
+            if self.scales is not None:
+                x = x * self.scales[s * ld:e * ld].reshape(blk, ld, 1)
+            elif self.doc_scales is not None:
+                ids = torch.arange(s, e, device=dev)
+                x = x * doc_row_scales(self.doc_scales, ids, ld)[..., None]
+            x = x * (tok[None, :, None] < ln[:, None, None])
+            if dtype == "int8":
+                q, scales[s * ld:e * ld] = quantize_int8_rows(
+                    x.reshape(blk * ld, d))
+            elif dtype == "int8-doc":
+                q, doc_scales[s:e] = quantize_int8_docs(x, ln)
+            elif dtype == "int4-doc":
+                q, doc_scales[:, s:e] = quantize_int4_groups(x, ln)
+            else:
+                q = x.reshape(blk * ld, d)
+            flat[s * out_rpd:e * out_rpd] = q
+        pooled = pooled_doc_embeddings(
+            flat, scales, self.doc_lengths, doc_len=ld,
+            doc_scales=doc_scales, packed_int4=dtype == "int4-doc")
+        return DenseTokenIndex(
+            emb_flat=flat, doc_lengths=self.doc_lengths, n_docs=self.n_docs,
+            doc_len=ld, dim=d, scales=scales, pooled=pooled,
+            doc_scales=doc_scales)
 
     def ensure_pooled(self) -> torch.Tensor:
         """Compute (and cache) the prefilter vectors if absent."""

@@ -3,15 +3,16 @@
 
 Owns the lexical (BM25 CSR) and dense (ColBERT token-embedding) indexes
 over one chunk corpus: builds both from the corpus, persists both in the
-JAX package's formats, and reloads them. One global chunk-id space: the
-corpus row index.
+JAX package's formats, reloads them, and appends new chunks without
+re-encoding the old ones. One global chunk-id space: the corpus row
+index.
 """
 
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Optional, Protocol, Sequence, Tuple
+from typing import Dict, Optional, Protocol, Sequence, Tuple
 
 import torch
 
@@ -27,7 +28,8 @@ log = get_logger(__name__)
 class DocEncoder(Protocol):
     """What the manager needs from an encoder (models/colbert.py)."""
 
-    def encode_docs(self, texts: Sequence[str]
+    def encode_docs(self, texts: Sequence[str],
+                    doc_len: Optional[int] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (token_embs (N, L, D), lengths (N,))"""
         ...
@@ -47,12 +49,25 @@ class IndexManager:
         self.dense: Optional[DenseTokenIndex] = None
         self.corpus: Optional[list] = None
         self.timer = StageTimer()
+        self._csr: Tuple = (None, {})
 
     def _require_flat(self) -> None:
         if self.config.mesh.index_layout != "single":
             raise NotImplementedError(
                 "the bucketed index layout comes with the port of "
                 "index/bucketed.py (ROADMAP.md)")
+
+    def lexical_csr(self) -> Dict[str, torch.Tensor]:
+        """The lexical CSR arrays (indptr, post_docs, post_weights) on the
+        manager's device, moved once per lexical index and shared by
+        every retriever over this manager (the fused cascade's cache keys
+        on their identities)."""
+        lex = self.lexical
+        if self._csr[0] is not lex:
+            self._csr = (lex, {
+                name: torch.as_tensor(getattr(lex, name), device=self.device)
+                for name in ("indptr", "post_docs", "post_weights")})
+        return self._csr[1]
 
     # ------------------------------------------------------------------
     def build_lexical(self, corpus: Sequence[str]) -> LexicalIndex:
@@ -98,6 +113,36 @@ class IndexManager:
         self.corpus = list(corpus)
         self.build_lexical(self.corpus)
         self.build_dense(self.corpus)
+
+    def add_documents(self, full_corpus: Sequence[str]) -> None:
+        """Incremental update: ``full_corpus`` is the WHOLE corpus in
+        global-id order with the new chunks appended at the end. Only the
+        new chunks are encoded, at the index's ``doc_len``, and appended
+        (``DenseTokenIndex.append``); the lexical CSR is rebuilt on the
+        host. Rebuilds everything when nothing is loaded or the corpus
+        shrank. A live retriever rebinds on its next call."""
+        self._require_flat()
+        full_corpus = list(full_corpus)
+        if self.dense is None or self.dense.n_docs > len(full_corpus):
+            self.build_all(full_corpus)
+            return
+        new_texts = full_corpus[self.dense.n_docs:]
+        self.corpus = full_corpus
+        self.build_lexical(full_corpus)
+        if not new_texts:
+            return
+        if self.encoder is None:
+            raise RuntimeError("IndexManager needs an encoder to add docs")
+        with self.timer.stage("colbert_encode_new"):
+            embs, lengths = self.encoder.encode_docs(
+                new_texts, doc_len=self.dense.doc_len)
+        with self.timer.stage("colbert_append"):
+            self.dense = self.dense.append(embs, lengths)
+            self.dense.save(self.config.colbert_index_path)
+        log.info("Dense index +%d docs -> %d total (encode %.2fs, "
+                 "append %.2fs)", len(new_texts), self.dense.n_docs,
+                 self.timer.timings["colbert_encode_new"],
+                 self.timer.timings["colbert_append"])
 
     # ------------------------------------------------------------------
     def load(self) -> None:

@@ -14,10 +14,14 @@ marker tokens and query [MASK]-augmentation:
     norm with max(norm, 1e-12); padding rows are zeroed (the invariant
     the MaxSim kernels rely on).
 
-Weights load from the JAX package's ``encoder_params.npz`` (flat
-``a/b/kernel`` keys) through ``params_from_jax``. fp32 only: the JAX
-package's bf16 activation option comes in a later slice. TF32 is turned
-off for matmuls and convolutions (utils/device.set_fp32_matmul_exact).
+Weights load from and save to the JAX package's ``encoder_params.npz``
+(flat ``a/b/kernel`` keys) through ``params_from_jax`` and
+``params_to_jax``. Activations run in ``ColBERTConfig.dtype``: float32,
+or bfloat16 with the JAX package's casts (parameters stay fp32; every
+Dense, Embed and LayerNorm yields bf16, LayerNorm computing in fp32; both
+attention einsums accumulate in fp32; softmax in fp32, cast to bf16).
+TF32 is turned off for matmuls and convolutions
+(utils/device.set_fp32_matmul_exact).
 """
 
 from __future__ import annotations
@@ -55,7 +59,7 @@ class ColBERTConfig:
     pad_token_id: int = 1              # RoBERTa convention
     query_max_tokens: int = 32
     doc_max_tokens: int = 256
-    dtype: torch.dtype = torch.float32
+    dtype: torch.dtype = torch.float32     # activations (encoder_dtype)
     # > 0: gated per-token-id anchor added before the final L2 norm
     # (see the JAX ColBERTConfig.lexical_anchor)
     lexical_anchor: float = 0.0
@@ -125,6 +129,23 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
+           ) -> torch.Tensor:
+    """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias cast to
+    ``dtype``, the product in it."""
+    bias = None if layer.bias is None else layer.bias.to(dtype)
+    return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), bias)
+
+
+def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype
+                ) -> torch.Tensor:
+    """flax ``nn.LayerNorm(dtype=dtype)``: statistics and the affine in
+    fp32, the result cast to ``dtype``."""
+    return nn.functional.layer_norm(
+        x.to(torch.float32), layer.normalized_shape, layer.weight,
+        layer.bias, layer.eps).to(dtype)
+
+
 class SelfAttention(nn.Module):
     def __init__(self, cfg: ColBERTConfig):
         super().__init__()
@@ -137,21 +158,27 @@ class SelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
+        dt = cfg.dtype
         b, s, h = x.shape
         nh = cfg.num_heads
         dh = h // nh
-        q = self.query(x).reshape(b, s, nh, dh)
-        k = self.key(x).reshape(b, s, nh, dh)
-        v = self.value(x).reshape(b, s, nh, dh)
+        q = _dense(self.query, x, dt).reshape(b, s, nh, dh)
+        k = _dense(self.key, x, dt).reshape(b, s, nh, dh)
+        v = _dense(self.value, x, dt).reshape(b, s, nh, dh)
         if cfg.position_embedding == "rope":
+            # fp32 tables: the rotated q, k come out fp32, as in JAX
             cos, sin = _rope_cache(s, dh, cfg.rope_base, x.device)
             q = _apply_rope(q, cos, sin, cfg.rope_interleaved)
             k = _apply_rope(k, cos, sin, cfg.rope_interleaved)
-        att = torch.einsum("bqhd,bkhd->bhqk", q, k) / float(np.sqrt(dh))
+        # both einsums accumulate in fp32 (preferred_element_type): bf16
+        # products are exact in fp32
+        f32 = torch.float32
+        att = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32))
+        att = att / float(np.sqrt(dh))
         bias = torch.where(mask[:, None, None, :], 0.0, -1e30)
-        att = torch.softmax((att + bias).to(torch.float32), dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", att, v).reshape(b, s, h)
-        return self.out(out)
+        att = torch.softmax(att + bias, dim=-1).to(dt)
+        out = torch.einsum("bhqk,bkhd->bqhd", att.to(f32), v.to(f32))
+        return _dense(self.out, out.to(dt).reshape(b, s, h), dt)
 
 
 class EncoderLayer(nn.Module):
@@ -166,9 +193,12 @@ class EncoderLayer(nn.Module):
                                       eps=cfg.layer_norm_eps)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        x = self.attention_ln(x + self.attention(x, mask))
-        f = nn.functional.gelu(self.intermediate(x), approximate="none")
-        return self.output_ln(x + self.output(f))
+        dt = x.dtype
+        x = _layer_norm(self.attention_ln, x + self.attention(x, mask), dt)
+        f = nn.functional.gelu(_dense(self.intermediate, x, dt),
+                               approximate="none")
+        return _layer_norm(self.output_ln, x + _dense(self.output, f, dt),
+                           dt)
 
 
 class ColBERTModel(nn.Module):
@@ -177,10 +207,9 @@ class ColBERTModel(nn.Module):
 
     def __init__(self, cfg: ColBERTConfig):
         super().__init__()
-        if cfg.dtype != torch.float32:
-            raise NotImplementedError(
-                "the port's encoder runs in float32 (encoder_dtype); "
-                "bf16 activations come in a later slice")
+        if cfg.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"encoder activations run in float32 or "
+                             f"bfloat16, not {cfg.dtype}")
         self.cfg = cfg
         self.word_embeddings = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         if cfg.position_embedding == "learned":
@@ -224,23 +253,27 @@ class ColBERTModel(nn.Module):
     def forward(self, input_ids: torch.Tensor,
                 attention_mask: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = self.word_embeddings(input_ids)
+        dt = cfg.dtype
+        # flax Embed(dtype=dt) casts the table; the rows it gathers are
+        # the same values
+        x = self.word_embeddings(input_ids).to(dt)
         if cfg.position_embedding == "learned":
             m = attention_mask.to(torch.int64)
             positions = torch.cumsum(m, dim=1) * m + cfg.pad_token_id
-            x = x + self.position_embeddings(positions)
+            x = x + self.position_embeddings(positions).to(dt)
         if cfg.type_vocab_size:
-            x = x + self.token_type_embeddings.weight[0]
-        x = self.embeddings_ln(x)
+            x = x + self.token_type_embeddings.weight[0].to(dt)
+        x = _layer_norm(self.embeddings_ln, x, dt)
         mask = attention_mask.to(torch.bool)
         for layer in self.layers:
             x = layer(x, mask)
-        emb = self.colbert_linear(x)
+        emb = _dense(self.colbert_linear, x, dt)
         if cfg.lexical_anchor > 0.0:
             emb = emb / torch.clamp(
                 torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
                 min=1e-12)
-            emb = emb + self.anchor_gate * self.anchor_embeddings(input_ids)
+            emb = emb + (self.anchor_gate.to(dt)
+                         * self.anchor_embeddings(input_ids).to(dt))
         emb = emb / torch.clamp(
             torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-12)
         return emb * attention_mask[..., None].to(emb.dtype)
@@ -272,6 +305,36 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         else:
             raise KeyError(f"unknown encoder parameter {key!r}")
         out[".".join(mods + [name])] = t
+    return out
+
+
+def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """A ``ColBERTModel``'s parameters -> the JAX ``encoder_params.npz``
+    keys, the inverse of ``params_from_jax``: ``nn.Linear.weight``
+    (out, in) becomes the Flax ``kernel`` (in, out), an Embedding's
+    weight ``embedding``, a LayerNorm's ``scale``; ``layers.{i}`` becomes
+    ``layer_{i}``; every array fp32."""
+    leaves = {nn.Linear: {"weight": "kernel", "bias": "bias"},
+              nn.Embedding: {"weight": "embedding"},
+              nn.LayerNorm: {"weight": "scale", "bias": "bias"}}
+    out: Dict[str, np.ndarray] = {}
+    for name, mod in model.named_modules():
+        names = leaves.get(type(mod))
+        if names is None:
+            continue
+        path = name.split(".")
+        if path[0] == "layers":
+            path = [f"layer_{path[1]}"] + path[2:]
+        for attr, leaf in names.items():
+            t = getattr(mod, attr)
+            if t is None:
+                continue
+            a = t.detach().to(torch.float32).cpu().numpy()
+            out["/".join(path + [leaf])] = a.T.copy() if leaf == "kernel" \
+                else a
+    if hasattr(model, "anchor_gate"):
+        out["anchor_gate"] = model.anchor_gate.detach().to(
+            torch.float32).cpu().numpy()
     return out
 
 
@@ -353,6 +416,11 @@ class ColBERTEncoder:
                                 device=self.device))
 
     # -- persistence -------------------------------------------------------
+    def save_params(self, path: str) -> None:
+        """Write the JAX package's ``encoder_params.npz`` (flat ``a/b/c``
+        keys, Dense kernels (in, out)): either package loads it."""
+        np.savez(path, **params_to_jax(self.model))
+
     @staticmethod
     def load_params(path: str) -> Dict[str, torch.Tensor]:
         """The JAX package's ``encoder_params.npz`` -> a state_dict."""

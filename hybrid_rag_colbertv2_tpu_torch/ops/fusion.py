@@ -41,7 +41,9 @@ def union_floor_split(k_final: int, weight_bm25: float,
 def _rank_weights(n: int, weight: float, rrf_k: int, floor: int,
                   device) -> torch.Tensor:
     pos = torch.arange(n, dtype=torch.float32, device=device)
-    w = torch.tensor(weight, dtype=torch.float32, device=device) / (
+    # the weight rounded to fp32 first, as in JAX; a fill, not a copy
+    # from the host, so the cascade stays capturable in a CUDA graph
+    w = torch.full((), weight, dtype=torch.float32, device=device) / (
         rrf_k + 1.0 + pos)
     if floor > 0:
         # tier gap 1e3 >> max possible sum (weights sum <= ~4/(rrf_k+1))

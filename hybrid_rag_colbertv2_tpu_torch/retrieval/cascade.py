@@ -11,14 +11,21 @@ local_rag_complete.py:894-935):
     Stage 3  exact fp32 rerank over the gathered int8 rows -> top-10
 
 Everything after tokenization stays on the device; the host packs query
-token ids and BM25 term ids into one int32 array and moves it once. The
-JAX package jit-compiles encoder + cascade into one executable and
-memoizes it; PyTorch runs eagerly, so there is no such cache here.
+token ids and BM25 term ids into one int32 array and moves it once. As
+the JAX package jit-compiles encoder + cascade into one executable and
+memoizes it (``fused_cascade_fn``, ``_FUSED_CACHE``), the port captures
+them, once per (batch, term width), as a CUDA graph and replays it: one
+dispatch per batch in place of some 400-700 eager launches. A graph reads
+the encoder's parameters and the index tensors at fixed addresses, so
+the cache keys on those tensors' identities as well as the JAX key, each
+entry holds them, and a retriever that sees a new index evicts the
+entries bound to the old one. On the CPU the same entries run eagerly.
 """
 
 from __future__ import annotations
 
 import json
+import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +41,7 @@ from ..ops.maxsim import (maxsim_scores, maxsim_scores_int4_doc,
 from ..ops.prefilter import candidate_sims, maxsim_topk_pruned
 from ..ops.quant import doc_row_scales
 from ..ops.topk import top_k
+from ..utils.cache import JitCache
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import StageTimer, get_logger
 
@@ -185,9 +193,151 @@ def hybrid_cascade(
     return final_ids, top_vals, debug
 
 
+# (model geometry, query_len, statics, binding) -> FusedCascade.
+# Bounded LRU: serving processes probing many distinct k values get the
+# hot ks cached and the rest evicted, and fresh retriever instances over
+# one encoder and index share entries instead of capturing again.
+_FUSED_CACHE = JitCache(max_entries=16)
+# one capture at a time in the process: a capture must not see another
+# thread's work on its stream's pool
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _identity(t: Optional[torch.Tensor]):
+    """A tensor's identity in a cache key: the object and the storage it
+    points at (a graph reads the address). The entry holds the tensor, so
+    neither can be reused while the key lives."""
+    return None if t is None else (id(t), t.data_ptr())
+
+
+class _Graph:
+    """One captured (B, Lq+Q) shape of a ``FusedCascade``: static device
+    input, pinned host buffers on both sides, static outputs."""
+
+    def __init__(self, entry: "FusedCascade", packed: np.ndarray):
+        dev = entry.device
+        self.host_in = torch.empty(packed.shape, dtype=torch.int32,
+                                   pin_memory=True)
+        self.host_in.numpy()[...] = packed
+        self.dev_in = self.host_in.to(dev)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            # eager warm-up: builds and loads the kernels, first-use
+            # allocations, library handles and workspaces for this stream
+            entry.forward(self.dev_in)
+        self.graph = torch.cuda.CUDAGraph()
+        # its own memory pool (the default); "thread_local": another
+        # thread's unrelated CUDA calls do not invalidate the capture
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.ids, self.scores = entry.forward(self.dev_in)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.host_ids = torch.empty(self.ids.shape, dtype=self.ids.dtype,
+                                    pin_memory=True)
+        self.host_scores = torch.empty(self.scores.shape,
+                                       dtype=self.scores.dtype,
+                                       pin_memory=True)
+
+    def run(self, packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Copy in, replay, copy out, on the current stream; the caller
+        holds the entry's lock from the copy-in to the copy-out."""
+        self.host_in.numpy()[...] = packed
+        self.dev_in.copy_(self.host_in, non_blocking=True)
+        self.graph.replay()
+        self.host_ids.copy_(self.ids, non_blocking=True)
+        self.host_scores.copy_(self.scores, non_blocking=True)
+        torch.cuda.current_stream(self.dev_in.device).synchronize()
+        return self.host_ids.numpy().copy(), self.host_scores.numpy().copy()
+
+
+class FusedCascade:
+    """Encoder forward + ``hybrid_cascade`` over one binding: the callable
+    ``packed (B, Lq+Q) int32 numpy -> (ids, scores) numpy`` of
+    ``fused_cascade_fn``, split at ``query_len`` as the JAX package's
+    fused executable is.
+
+    On CUDA each (B, Q) it sees is captured once as a CUDA graph (the
+    way ``jax.jit`` keeps one executable per shape) and replayed after;
+    a capture or replay that fails raises. On the CPU it runs eagerly.
+    It holds the model and every tensor the graphs read."""
+
+    captures = 0        # graphs captured in this process, every entry
+
+    def __init__(self, model, query_len: int, statics: Dict,
+                 binding: Dict[str, Optional[torch.Tensor]]):
+        self.model = model
+        self.query_len = query_len
+        self.statics = dict(statics)
+        self.binding = dict(binding)
+        # the parameters the graphs read, kept even if the model's own
+        # attributes are later replaced
+        self.params = tuple(model.parameters())
+        self.device = binding["emb_flat"].device
+        self._lock = threading.Lock()
+        self._graphs: Dict[Tuple[int, ...], _Graph] = {}
+
+    def reads_any(self, ids) -> bool:
+        """Does this entry read a tensor whose ``id`` is in ``ids``?"""
+        return any(id(t) in ids for t in self.binding.values()
+                   if t is not None)
+
+    def forward(self, packed: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The device work on a (B, Lq+Q) int32 tensor: what a graph
+        captures, and the eager path."""
+        lq = self.query_len
+        t = self.binding
+        with torch.inference_mode():
+            q_ids = packed[:, :lq].long()
+            q_emb = self.model(q_ids, torch.ones_like(q_ids))
+            ids, scores, _ = hybrid_cascade(
+                q_emb, packed[:, lq:], t["indptr"], t["post_docs"],
+                t["post_weights"], t["emb_flat"], t["scales"],
+                t["doc_lengths"], t["pooled"], t["doc_scales"],
+                **self.statics)
+        return ids, scores
+
+    def eager(self, packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        ids, scores = self.forward(torch.as_tensor(packed,
+                                                   device=self.device))
+        return ids.cpu().numpy(), scores.cpu().numpy()
+
+    def __call__(self, packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        if self.device.type != "cuda":
+            return self.eager(packed)
+        packed = np.ascontiguousarray(packed, dtype=np.int32)
+        with self._lock, torch.cuda.device(self.device):
+            g = self._graphs.get(packed.shape)
+            if g is None:
+                with _CAPTURE_LOCK:
+                    g = _Graph(self, packed)
+                    FusedCascade.captures += 1
+                self._graphs[packed.shape] = g
+            return g.run(packed)
+
+
+def fused_cascade_fn(model, query_len: int, statics: Dict,
+                     binding: Dict[str, Optional[torch.Tensor]]
+                     ) -> FusedCascade:
+    """Memoized encoder forward + hybrid_cascade in ONE dispatch per
+    batch. ``statics`` are hybrid_cascade's static kwargs; ``binding``
+    names the lexical CSR and dense index tensors it reads (None where a
+    layout has none). The key is the JAX package's (model geometry,
+    query length, statics) plus the identities of the model's parameters
+    and of the bound tensors: equal-geometry encoders with other weights
+    get entries of their own (JAX passes params as jit arguments)."""
+    key = (model.cfg, query_len, tuple(sorted(statics.items())),
+           tuple(_identity(p) for p in model.parameters()),
+           tuple((name, _identity(t)) for name, t in binding.items()))
+    return _FUSED_CACHE.get_or_build(
+        key, lambda: FusedCascade(model, query_len, statics, binding))
+
+
 class HybridRetriever:
-    """Host-side wrapper: tokenize -> encoder + cascade on the device ->
-    result dicts. The result dict schema is the reference's retrieve()
+    """Host-side wrapper: tokenize -> encoder + cascade on the device
+    (``fused_cascade_fn``: one CUDA graph replay per batch on the card)
+    -> result dicts. The result dict schema is the reference's retrieve()
     output (local_rag_complete.py:1004-1013)."""
 
     def __init__(
@@ -208,12 +358,26 @@ class HybridRetriever:
         self.last_timings: Dict[str, float] = {}
         if indexes.lexical is None or indexes.dense is None:
             raise RuntimeError("indexes not built/loaded")
+        self._bind_lock = threading.Lock()
+        self._bound: Tuple = ()
+        self._lex_dev: Dict[str, torch.Tensor] = {}
         self._bind_index()
 
+    def _index_objects(self) -> Tuple:
+        """The manager's current lexical index, dense index and the
+        dense tensors a fused entry reads."""
+        lex, dense = self.indexes.lexical, self.indexes.dense
+        return (lex, dense, dense.emb_flat, dense.scales, dense.doc_lengths,
+                dense.pooled, dense.doc_scales)
+
     def _bind_index(self) -> None:
-        """(Re)capture the current index: the lexical CSR moves to the
-        device once per index build, and the dense index must be on the
-        retriever's device."""
+        """(Re)capture the current index: the lexical CSR on the device
+        (moved once per lexical index by the manager), the prefilter
+        vectors if this retriever's route reads them. Entries of
+        ``_FUSED_CACHE`` that read a tensor of the old binding which the
+        new one dropped are evicted, so the old index's memory is freed
+        once its other holders let go (IndexManager.add_documents
+        replaces both indexes)."""
         lex = self.indexes.lexical
         dense = self.indexes.dense
         if not isinstance(dense, DenseTokenIndex):
@@ -223,30 +387,40 @@ class HybridRetriever:
         if dense.device != self.device:
             raise ValueError(f"dense index is on {dense.device}, the "
                              f"retriever on {self.device}")
-        self._lex_dev = dict(
-            indptr=torch.as_tensor(lex.indptr, device=self.device),
-            post_docs=torch.as_tensor(lex.post_docs, device=self.device),
-            post_weights=torch.as_tensor(lex.post_weights,
-                                         device=self.device),
-        )
-        self._bound_key = (id(lex.indptr), id(lex.post_docs), id(dense),
-                           dense.n_docs)
+        lex_dev = self.indexes.lexical_csr()
+        if lex_dev["indptr"].device != self.device:
+            raise ValueError(f"the lexical CSR is on "
+                             f"{lex_dev['indptr'].device}, the retriever "
+                             f"on {self.device}")
+        if getattr(self.config, "dense_prefilter", 0) > 0:
+            dense.ensure_pooled()
+        old = [t for t in (*self._bound[2:], *self._lex_dev.values())
+               if t is not None]
+        self._lex_dev = lex_dev
+        # strong references: the ids compared in _check_binding stay
+        # unique while bound
+        self._bound = self._index_objects()
+        self._bound_key = tuple(map(id, self._bound)) + (dense.n_docs,)
+        keep = {id(t) for t in (*self._bound[2:], *lex_dev.values())}
+        stale = {id(t) for t in old} - keep
+        if stale:
+            n = _FUSED_CACHE.drop_where(lambda _k, e: e.reads_any(stale))
+            log.info("rebound to a new index: %d fused entries evicted", n)
 
     def _check_binding(self) -> None:
-        lex = self.indexes.lexical
-        dense = self.indexes.dense
-        key = (id(lex.indptr), id(lex.post_docs), id(dense), dense.n_docs)
+        objs = self._index_objects()
+        key = tuple(map(id, objs)) + (objs[1].n_docs,)
         if key != self._bound_key:
             log.info("index changed since binding — rebinding retriever")
             self._bind_index()
 
     def _statics(self, k_final: int) -> Dict:
         cfg = self.config
-        dense = self.indexes.dense
+        lex, dense = self._bound[:2]
         return dict(
             prefilter=getattr(cfg, "dense_prefilter", 0),
             n_docs=dense.n_docs,
-            max_postings=self.indexes.lexical.max_postings,
+            max_postings=lex.max_postings,
             doc_len=dense.doc_len,
             is_int8=dense.is_int8,
             k_each=min(cfg.bm25_top_k, dense.n_docs),
@@ -260,6 +434,24 @@ class HybridRetriever:
         )
 
     # ------------------------------------------------------------------
+    def _build_fused(self, k_final: int) -> FusedCascade:
+        """ONE dispatch per batch: query encoder forward + full cascade,
+        the query token ids and BM25 term ids in one packed transfer.
+
+        Entries are memoized MODULE-wide (``_FUSED_CACHE``): fresh
+        retriever instances over the same encoder and index (eval and
+        gate harnesses build many) reuse the captured graphs."""
+        statics = self._statics(k_final)
+        dense = self._bound[1]
+        binding = dict(
+            self._lex_dev, emb_flat=dense.emb_flat, scales=dense.scales,
+            doc_lengths=dense.doc_lengths,
+            pooled=dense.pooled if statics["prefilter"] > 0 else None,
+            doc_scales=dense.doc_scales)
+        return fused_cascade_fn(self.encoder.model,
+                                self.encoder.cfg.query_max_tokens, statics,
+                                binding)
+
     def retrieve_batch(
         self, queries: Sequence[str], top_k_final: Optional[int] = None,
         *, timings_out: Optional[Dict[str, float]] = None,
@@ -267,34 +459,23 @@ class HybridRetriever:
         """-> (ids (B, k), scores (B, k)) as numpy.
 
         ``timings_out``: optional caller-local dict the per-call stage
-        split is accumulated into (safe under concurrent callers)."""
+        split is accumulated into (safe under concurrent callers: a
+        fused entry serializes its replays)."""
         cfg = self.config
         k = top_k_final or cfg.final_top_k
-        self._check_binding()
+        with self._bind_lock:       # one consistent binding per call
+            self._check_binding()
+            lex, dense = self._bound[:2]
+            fused = self._build_fused(
+                min(k, cfg.fusion_candidates, dense.n_docs))
         lt: Dict[str, float] = {} if timings_out is None else timings_out
-        lex = self.indexes.lexical
-        dense = self.indexes.dense
         with self.timer.stage("tokenize", out=lt):
             packed = pack_query_batch(
                 self.encoder, lex, queries,
                 getattr(cfg, "query_max_terms", None),
                 getattr(cfg, "query_term_buckets", None))
-        statics = self._statics(min(k, cfg.fusion_candidates, dense.n_docs))
-        lq = self.encoder.cfg.query_max_tokens
         with self.timer.stage("encode+cascade", out=lt):
-            packed_dev = torch.as_tensor(packed, device=self.device)
-            q_emb = self.encoder.encode_query_ids(packed_dev[:, :lq].long())
-            with torch.inference_mode():
-                ids, scores, _ = hybrid_cascade(
-                    q_emb, packed_dev[:, lq:],
-                    self._lex_dev["indptr"], self._lex_dev["post_docs"],
-                    self._lex_dev["post_weights"],
-                    dense.emb_flat, dense.scales, dense.doc_lengths,
-                    dense.ensure_pooled() if statics["prefilter"] > 0
-                    else None,
-                    dense.doc_scales, **statics)
-            ids = ids.cpu().numpy()
-            scores = scores.cpu().numpy()
+            ids, scores = fused(packed)
         self.last_timings = {n: round(v, 6) for n, v in lt.items()}
         return ids, scores
 

@@ -24,6 +24,7 @@ def _port_modules():
 def test_port_imports_no_jax():
     mods = _port_modules()
     assert f"{PORT}.ops.maxsim" in mods and f"{PORT}.retrieval.cascade" in mods
+    assert f"{PORT}.utils.cache" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
