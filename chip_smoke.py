@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # exits 0 on success; one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
+    python3 chip_smoke.py --app-only      # build + the app phase, then stop
     python3 chip_smoke.py --variant KERNEL:NAME=DIR ...  # + time other builds
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
@@ -1157,6 +1158,12 @@ def main() -> int:
             + (f"; {len(serial)} wgmma serialised: {serial[0][:200]}"
                if serial else ""))
 
+    if "--app-only" in sys.argv[1:]:
+        app = phase_app(device)
+        print(json.dumps({"app": app, "card": card}))
+        log("app-only: stopping after the app phase")
+        return 0
+
     # -- phase 2: each kernel vs its plain version at small shapes ------
     phase_kernel_small(device)
     phase_length_edges(device)
@@ -1165,6 +1172,9 @@ def main() -> int:
     if "--kernels-only" in sys.argv[1:]:
         log("kernels-only: stopping after the kernel checks")
         return 0
+
+    # -- the app's default path (its own counted run) ---------------------
+    app = phase_app(device)
 
     # -- phase 3: the main path of every layout, both routes -------------
     from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
@@ -1271,8 +1281,11 @@ def main() -> int:
              "replaces": f"{JAX_MAXSIM}:{line}",
              "launches": launches[kernel],
              "graph_launches_per_call": graph_launches[kernel],
+             "app_launches": app["app_launches"][KERNELS[kernel][1]]
+             if kernel == "maxsim_int8" else 0,
              **nums[kernel]}
             for kernel, (_, _, _, src, line) in KERNELS.items()]
+    print(json.dumps({"app": app, "card": card}))
     print(json.dumps({"retrieve_batch_ms": lat, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1280,6 +1293,641 @@ def main() -> int:
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# -- the app's default path: upload, training, the gate, serving ----------
+
+# the JAX package's app-path corpus (bench.py:754) and its config
+# (bench.py:_seed_eval, :647-661); everything else at RAGConfig's defaults
+APP_DOCS = 112
+APP_CONFIG = dict(min_chunk_size=48, max_chunk_size=96, doc_max_tokens=128)
+APP_BATCHES = 40
+# training steps traced by torch.profiler (left out of the step times)
+TRAIN_PROFILED = range(100, 105)
+# the trainer card against CPU: fp32 sums in other orders (TF32 off);
+# attention key biases excepted (a zero gradient in exact arithmetic, so
+# Adam turns rounding noise into steps of up to lr on either side)
+TRAIN_RTOL_LOSS, TRAIN_ATOL_PARAM = 1e-5, 1e-5
+# ties between final scores, card against CPU (as check_small_cascade)
+TIE_RTOL, TIE_ATOL = 1e-4, 1e-3
+
+
+class StepProbe:
+    """Wraps ``train/trainer.py::make_train_step`` for one training run:
+    CUDA events around every step, torch.profiler over the steps in
+    TRAIN_PROFILED. -> numbers()"""
+
+    def __init__(self):
+        self.events = []
+        self.prof = None
+        self.prof_wall = 0.0
+        self.prof_events = None
+
+    def wrap(self, make):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        def make_timed(*a, **k):
+            step = make(*a, **k)
+
+            def timed(batch, count):
+                i = len(self.events)
+                if i == TRAIN_PROFILED.start:
+                    torch.cuda.synchronize()
+                    self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                    ProfilerActivity.CUDA])
+                    self.prof.__enter__()
+                    self.prof_wall = time.perf_counter()
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = step(batch, count)
+                e1.record()
+                self.events.append((e0, e1))
+                if i == TRAIN_PROFILED[-1]:
+                    torch.cuda.synchronize()
+                    self.prof_wall = time.perf_counter() - self.prof_wall
+                    self.prof.__exit__(None, None, None)
+                    self.prof_events = self.prof.key_averages()
+                return out
+            return timed
+        return make_timed
+
+    def numbers(self) -> dict:
+        import torch
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in self.events]
+        timed = [t for i, t in enumerate(ms)
+                 if i > 0 and i not in TRAIN_PROFILED]
+        n = len(TRAIN_PROFILED)
+        cuda = torch.autograd.DeviceType.CUDA
+        ev = self.prof_events
+        device_ms = sum(e.self_device_time_total for e in ev
+                        if e.device_type == cuda) / 1e3 / n
+        host = sum(e.count for e in ev if e.device_type != cuda
+                   and e.key in LAUNCH_CALLS) / n
+        med = statistics.median(timed)
+        return {"steps": len(ms), "first_step_ms": ms[0],
+                "step_ms_p50": med, "step_ms_mean": statistics.fmean(timed),
+                "step_ms_p90": statistics.quantiles(timed, n=10)[-1],
+                "traced_wall_ms_per_step": self.prof_wall * 1e3 / n,
+                "device_ms_per_step": device_ms, "busy": device_ms / med,
+                "host_launches_per_step": host}
+
+
+class CallTimer:
+    """Wall time (the device synchronized) of methods patched for one
+    run, summed by label; ``with CallTimer({label: (cls, name)}) as t``."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.total = dict.fromkeys(targets, 0.0)
+        self.saved = []
+
+    def __enter__(self):
+        import torch
+        for label, (owner, name) in self.targets.items():
+            raw = owner.__dict__[name]
+            fn = raw.__func__ if isinstance(raw, classmethod) else raw
+
+            def timed(*a, _fn=fn, _label=label, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.total[_label] += time.perf_counter() - t0
+            setattr(owner, name, classmethod(timed)
+                    if isinstance(raw, classmethod) else timed)
+            self.saved.append((owner, name, raw))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, raw in reversed(self.saved):
+            setattr(owner, name, raw)
+
+
+def app_config(root: Path, **over):
+    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    kw = dict(db_path=str(root / "rag.db"),
+              bm25_index_path=str(root / "idx/bm25"),
+              colbert_index_path=str(root / "idx/colbert"),
+              tokenizer_path=str(root / "idx/tok.json"),
+              images_dir=str(root / "img"), **APP_CONFIG)
+    kw.update(over)
+    return RAGConfig(**kw)
+
+
+def app_upload(root: Path, docs) -> tuple:
+    """``index_documents`` on the card with the parts timed and the
+    training steps probed. -> (app, result, parts, steps, metrics)"""
+    from hybrid_rag_colbertv2_tpu_torch.app.application import (
+        RAGApplication)
+    from hybrid_rag_colbertv2_tpu_torch.ingest.processor import (
+        DocumentProcessor)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
+        ColBERTTokenizer)
+    from hybrid_rag_colbertv2_tpu_torch.train import trainer as trainer_mod
+    app = RAGApplication(app_config(root), use_ollama=False)
+    probe = StepProbe()
+    runs = []
+    real_make, real_train = (trainer_mod.make_train_step,
+                             trainer_mod.ColBERTTrainer.train)
+
+    def train(self, pairs, steps=None):
+        runs.append((self.cfg, real_train(self, pairs, steps)))
+        return runs[-1][1]
+    trainer_mod.make_train_step = probe.wrap(real_make)
+    trainer_mod.ColBERTTrainer.train = train
+    try:
+        with CallTimer({
+                "ingest": (DocumentProcessor, "process_document"),
+                "bpe": (ColBERTTokenizer, "train_bpe"),
+                "encoder_init": (RAGApplication, "_make_encoder"),
+                "train_total": (RAGApplication, "_train_encoder"),
+                "train_steps": (trainer_mod.ColBERTTrainer, "train")}) as t:
+            t0 = time.perf_counter()
+            out = app.index_documents([str(p) for p in docs])
+            total = time.perf_counter() - t0
+    finally:
+        trainer_mod.make_train_step = real_make
+        trainer_mod.ColBERTTrainer.train = real_train
+    if len(runs) != 1:
+        raise AssertionError(f"the upload trained {len(runs)} times, want 1")
+    cfg, metrics = runs[0]
+    parts = {"total_s": total, "ingest_s": t.total["ingest"],
+             "bpe_s": t.total["bpe"],
+             "encoder_init_s": t.total["encoder_init"] - t.total["bpe"],
+             "pairs_and_mining_s": (t.total["train_total"]
+                                    - t.total["train_steps"]),
+             "train_steps_s": t.total["train_steps"],
+             **{f"index_{k}_s": v for k, v in out["timings"].items()}}
+    steps = probe.numbers()
+    steps.update(batch_size=cfg.batch_size, doc_len=cfg.doc_len,
+                 learning_rate=cfg.learning_rate)
+    return app, out, parts, steps, metrics
+
+
+def app_query_batches(corpus) -> list:
+    """APP_BATCHES batches of 8 held-out span queries over the corpus."""
+    import numpy as np
+    from hybrid_rag_colbertv2_tpu_torch.train.data import pseudo_query_pairs
+    pairs = pseudo_query_pairs(corpus, n_pairs_per_doc=1, seed=2024,
+                               query_words=(4, 12))
+    np.random.default_rng(2024).shuffle(pairs)
+    qs = [q for q, _ in pairs][:APP_BATCHES * BATCH]
+    if len(qs) < APP_BATCHES * BATCH:
+        raise AssertionError(f"only {len(qs)} app queries")
+    return [qs[i:i + BATCH] for i in range(0, len(qs), BATCH)]
+
+
+def time_query_batches(app, batches) -> dict:
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
+    app.query_batch(batches[0])                  # every shape captured
+    for b in batches:
+        app.query_batch(b)
+    caps = FusedCascade.captures
+    ts, split = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        rows = app.query_batch(b)
+        ts.append((time.perf_counter() - t0) * 1e3)
+        split.append(app.retriever.last_timings)
+        if len(rows) != BATCH or not all(rows):
+            raise AssertionError("query_batch returned empty rows")
+    caps = FusedCascade.captures - caps
+    if caps:
+        raise AssertionError(f"{caps} captures in the timed app calls")
+    # the median of each stage; "rest" is the chunk-store fetch and the
+    # result rows (query_batch around retrieve_batch)
+    stages = {n: statistics.median(t[n] for t in split) * 1e3
+              for n in ("tokenize", "encode+cascade")}
+    rest = statistics.median(t - (s["tokenize"] + s["encode+cascade"]) * 1e3
+                             for t, s in zip(ts, split))
+    return {"p50_ms": statistics.median(ts),
+            "p90_ms": statistics.quantiles(ts, n=10)[-1], "calls": len(ts),
+            "tokenize_ms": stages["tokenize"],
+            "replay_ms": stages["encode+cascade"], "fetch_rows_ms": rest}
+
+
+def app_train_card_vs_cpu(root: Path, corpus, device) -> dict:
+    """The trainer's 3 steps (warmup 1, the app's batch 16, 4 hard
+    negatives, doc_len 128) from the app's trained params on both
+    devices, on equal batches: losses, accuracies and params."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
+        ColBERTConfig, ColBERTEncoder)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
+        ColBERTTokenizer)
+    from hybrid_rag_colbertv2_tpu_torch.train.data import (
+        mine_hard_negatives, pseudo_query_pairs)
+    from hybrid_rag_colbertv2_tpu_torch.train.trainer import (
+        ColBERTTrainer, TrainConfig)
+    tok = ColBERTTokenizer.load(root / "idx/tok.json")
+    params = str(root / "idx/colbert/encoder_params.npz")
+    idx = pseudo_query_pairs(corpus, n_pairs_per_doc=1, seed=77)[:48]
+    mined = mine_hard_negatives(corpus, idx, n_negatives=4, seed=77)
+    pairs = [(q, corpus[i], [corpus[j] for j in negs])
+             for q, i, negs in mined]
+    kw = dict(batch_size=16, doc_len=128, steps=3, warmup_steps=1)
+    runs = {}
+    for dev in (device, torch.device("cpu")):
+        enc = ColBERTEncoder(ColBERTConfig.small(vocab_size=tok.vocab_size,
+                                                 doc_max_tokens=128),
+                             tok, params=ColBERTEncoder.load_params(params),
+                             device=dev)
+        tr = ColBERTTrainer(enc, TrainConfig(**kw))
+        losses, accs = [], []
+        states = []
+        for s in range(3):
+            m = tr.step_fn(tr._make_batch(pairs[16 * s:16 * s + 16]),
+                           tr.updates)
+            tr.updates += 1
+            losses.append(float(m["loss"]))
+            accs.append(float(m["accuracy"]))
+            states.append({k: v.detach().cpu().clone()
+                           for k, v in enc.model.state_dict().items()})
+        runs[dev.type] = (losses, accs, states, tr)
+    (gl, ga, gs, gtr), (cl, ca, cs, _) = runs["cuda"], runs["cpu"]
+    worst, worst_bias = 0.0, 0.0
+    bound = 0.0
+    for s in range(3):
+        bound += 2 * gtr.schedule(s) * 1.02
+        if abs(gl[s] - cl[s]) > TRAIN_RTOL_LOSS * abs(cl[s]) or ga[s] != ca[s]:
+            raise AssertionError(f"train step {s} card vs CPU: loss "
+                                 f"{gl[s]} vs {cl[s]}, acc {ga[s]} vs "
+                                 f"{ca[s]}")
+        for k in gs[s]:
+            d = float((gs[s][k] - cs[s][k]).abs().max())
+            if k.endswith("attention.key.bias"):
+                worst_bias = max(worst_bias, d)
+                if d > bound:
+                    raise AssertionError(f"step {s} {k}: {d} > {bound}")
+            else:
+                worst = max(worst, d)
+                if d > TRAIN_ATOL_PARAM:
+                    raise AssertionError(f"train step {s} card vs CPU: "
+                                         f"{k} differs by {d}")
+    log(f"app trainer card vs CPU, 3 steps (batch 16 + 64 negatives, "
+        f"doc_len 128): losses {gl} vs {cl}; max |param diff| {worst:.3e} "
+        f"(limit {TRAIN_ATOL_PARAM:g}), key biases {worst_bias:.3e} (limit "
+        f"{bound:.3e})")
+    return {"losses_card": gl, "losses_cpu": cl, "max_param_diff": worst,
+            "max_key_bias_diff": worst_bias}
+
+
+def app_graph_after_training(root: Path, corpus, device) -> None:
+    """A route-0 retriever captures its graph, its encoder trains two
+    steps in place, and the same graph then serves the trained weights:
+    equal to a fresh retriever over a fresh encoder with those params."""
+    import numpy as np
+    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
+        ColBERTConfig, ColBERTEncoder)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
+        ColBERTTokenizer)
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        FusedCascade, HybridRetriever)
+    from hybrid_rag_colbertv2_tpu_torch.train.data import pseudo_query_pairs
+    from hybrid_rag_colbertv2_tpu_torch.train.trainer import (
+        ColBERTTrainer, TrainConfig)
+    tok = ColBERTTokenizer.load(root / "idx/tok.json")
+    cfg = app_config(root, dense_prefilter=0, final_fusion="rerank")
+    params = str(root / "idx/colbert/encoder_params.npz")
+
+    def encoder(path):
+        return ColBERTEncoder(ColBERTConfig.small(
+            vocab_size=tok.vocab_size, doc_max_tokens=128), tok,
+            params=ColBERTEncoder.load_params(path), device=device)
+    enc = encoder(params)
+    mgr = IndexManager(cfg, enc, device=device)
+    mgr.load()
+    r = HybridRetriever(cfg, mgr, enc, device=device)
+    queries = [q for q, _ in pseudo_query_pairs(corpus, n_pairs_per_doc=1,
+                                                seed=5)][:BATCH]
+    caps = FusedCascade.captures
+    before = r.retrieve_batch(queries)
+    pairs = [(q, corpus[i]) for q, i in
+             pseudo_query_pairs(corpus, n_pairs_per_doc=1, seed=6)]
+    ColBERTTrainer(enc, TrainConfig(batch_size=16, doc_len=128, steps=2,
+                                    warmup_steps=1, learning_rate=1e-3)
+                   ).train(pairs)
+    after = r.retrieve_batch(queries)
+    if FusedCascade.captures - caps != 1:
+        raise AssertionError("training must not re-capture the graph")
+    trained = root / "trained_params.npz"
+    enc.save_params(str(trained))
+    fresh = encoder(str(trained))
+    want = HybridRetriever(cfg, mgr, fresh, device=device).retrieve_batch(
+        queries)
+    if not (np.array_equal(after[0], want[0])
+            and np.array_equal(after[1], want[1])):
+        raise AssertionError("a graph captured before training must serve "
+                             "the trained weights")
+    if np.array_equal(after[1], before[1]):
+        raise AssertionError("two training steps left the scores unchanged")
+    log("app graph after 2 training steps: the graph captured before "
+        "training serves the trained weights (ids and scores equal to a "
+        "fresh retriever's)")
+
+
+def app_gate_card_vs_cpu(app, corpus) -> dict:
+    """The port on the CPU over the same index directory and
+    ``encoder_params.npz`` runs the same gate; the picked entry must be
+    the card's. Details differing by a query are allowed only where the
+    flipped query's source chunk ties the hit cut within TIE_RTOL/ATOL
+    on one of the devices, which this shows query by query."""
+    import copy
+    import numpy as np
+    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
+        ColBERTConfig, ColBERTEncoder)
+    from hybrid_rag_colbertv2_tpu_torch.retrieval import gate
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        HybridRetriever)
+    cfg = copy.deepcopy(app.config)
+    cfg.final_fusion = "auto"
+    enc = ColBERTEncoder(
+        ColBERTConfig.small(vocab_size=app.encoder.cfg.vocab_size,
+                            doc_max_tokens=cfg.doc_max_tokens),
+        app.encoder.tokenizer, params=ColBERTEncoder.load_params(
+            str(Path(cfg.colbert_index_path) / "encoder_params.npz")),
+        device="cpu")
+    mgr = IndexManager(cfg, enc, device="cpu")
+    mgr.load()
+    t0 = time.perf_counter()
+    picked, det = gate.resolve_final_fusion(
+        cfg, mgr, enc, corpus, chunk_store=app.store,
+        n_queries=cfg.gate_queries)
+    cpu_s = time.perf_counter() - t0
+    card = app.fusion_gate
+    if (det["picked"], det["picked_weight"]) != (card["picked"],
+                                                 card["picked_weight"]):
+        raise AssertionError(f"gate on the CPU picked {picked}, the card "
+                             f"{card['picked']}/{card['picked_weight']}")
+    flips = 0
+    if det != card:
+        # the regimes as gate.resolve_final_fusion builds them
+        from hybrid_rag_colbertv2_tpu_torch.train.data import (
+            pseudo_query_pairs, reworded_query_pairs)
+        seed = cfg.encoder_seed + gate._GATE_SEED_OFFSET
+        regimes = {"verbatim": (dict(seed=seed), 10),
+                   "long_verbatim": (dict(seed=seed + 1,
+                                          query_words=(12, 24)), 3),
+                   "dropout": (dict(seed=seed + 2, word_dropout=0.25), 10),
+                   "synonym": (dict(seed=seed + 3, synonym_prob=1.0), 10),
+                   "reworded": (dict(seed=seed + 4, reworded=True), 10)}
+        n_per = max(1, cfg.gate_queries // len(regimes))
+        rng = np.random.default_rng(seed)
+        sides = {"card": (app.indexes, app.encoder), "cpu": (mgr, enc)}
+        for name, (kw, top) in regimes.items():
+            gen = (reworded_query_pairs if kw.pop("reworded", False)
+                   else pseudo_query_pairs)
+            pairs = gen(corpus, n_pairs_per_doc=1, **kw)
+            rng.shuffle(pairs)
+            pairs = pairs[:n_per]
+            if card["regimes"].get(name) == det["regimes"].get(name):
+                continue
+            for mode, w in gate.GATE_MENU:
+                key = f"{mode}_w{w}"
+                if card["regimes"][name][key] == det["regimes"][name][key]:
+                    continue
+                c2 = copy.deepcopy(cfg)
+                c2.final_fusion, c2.fusion_weight_bm25 = mode, w
+                out = {}
+                for side, (m, e) in sides.items():
+                    r = HybridRetriever(c2, m, e, device=e.device)
+                    out[side] = r.retrieve_batch([q for q, _ in pairs], 10)
+                for j, (q, src) in enumerate(pairs):
+                    hit = {s: src in o[0][j][:top] for s, o in out.items()}
+                    if hit["card"] == hit["cpu"]:
+                        continue
+                    side = "card" if hit["card"] else "cpu"
+                    ids, sc = out[side][0][j], out[side][1][j]
+                    s_src = sc[list(ids).index(src)]
+                    s_cut = sc[min(top, len(sc) - 1)]
+                    log(f"gate flip {name} {key}: query {j} source {src} "
+                        f"a hit on the {side} only; its score there "
+                        f"{s_src:.6f}, the score at the cut {s_cut:.6f}")
+                    if abs(s_src - s_cut) > TIE_ATOL + TIE_RTOL * abs(s_cut):
+                        raise AssertionError("gate flip beyond a tie")
+                    flips += 1
+    log(f"gate on the CPU over the same index and params: picked "
+        f"{det['picked']}/{det['picked_weight']} as on the card, details "
+        f"{'equal' if det == card else 'equal but for ' + str(flips) + ' tied flips'} "
+        f"({cpu_s:.1f}s on the CPU)")
+    return {"cpu_picked": [det["picked"], det["picked_weight"]],
+            "details_equal": det == card, "tied_flips": flips,
+            "cpu_gate_s": cpu_s}
+
+
+def app_cli_and_server(app, root: Path, docs, query: str) -> dict:
+    """The CLI in subprocesses on the default device (the card): an upload
+    into a fresh directory, then ``--query --json`` over the app's index,
+    whose ids must be ``app.query``'s; the HTTP server on port 0: one
+    /query, whose ids must be ``app.query``'s too."""
+    import threading
+    import urllib.request
+    from hybrid_rag_colbertv2_tpu_torch.app.server import make_server
+    want = [r["chunk_id"] for r in app.query(query)]
+    app.config.save(root / "app.json")
+    fresh = root / "cli"
+    app_config(fresh).save(root / "cli.json")
+    cmd = [sys.executable, "-m", f"{PORT}.app.cli", "--json",
+           "--no-generate"]
+    t0 = time.perf_counter()
+    up = subprocess.run(cmd + ["--config", str(root / "cli.json"),
+                               "--upload", str(docs[0])], cwd=REPO,
+                        capture_output=True, text=True, timeout=300)
+    up_s = time.perf_counter() - t0
+    if up.returncode != 0:
+        raise AssertionError(f"CLI --upload failed: {up.stderr[-2000:]}")
+    up_out = json.loads(up.stdout.strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    qr = subprocess.run(cmd + ["--config", str(root / "app.json"),
+                               "--query", query], cwd=REPO,
+                        capture_output=True, text=True, timeout=300)
+    q_s = time.perf_counter() - t0
+    if qr.returncode != 0:
+        raise AssertionError(f"CLI --query failed: {qr.stderr[-2000:]}")
+    got = [r["chunk_id"] for r in json.loads(qr.stdout.strip()
+                                             .splitlines()[-1])]
+    if got != want:
+        raise AssertionError(f"CLI --query ids {got}, app.query {want}")
+    log(f"CLI: --upload {docs[0].name} -> {up_out['total_chunks']} chunks "
+        f"({up_s:.1f}s); --query --json ids equal app.query's ({q_s:.1f}s, "
+        f"process start included)")
+    httpd, batcher = make_server(app, port=0, max_batch=8,
+                                 batch_window_s=0.002)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    try:
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{httpd.server_address[1]}/query",
+            data=json.dumps({"query": query}).encode(),
+            headers={"Content-Type": "application/json"}, method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            rows = json.loads(resp.read())["results"]
+    finally:
+        httpd.shutdown()
+        batcher.close()
+        httpd.server_close()
+    if [r["chunk_id"] for r in rows] != want:
+        raise AssertionError("server /query ids differ from app.query's")
+    log("server on port 0: /query ids equal app.query's")
+    return {"cli_upload_s": up_s, "cli_query_s": q_s}
+
+
+def phase_app(device) -> dict:
+    """The app's default path on the card, as a user runs it: upload the
+    JAX bench's app-path corpus (ingest, BPE, pairs and mining, 300
+    training steps, index build), then query (reload, the gate, serving),
+    both dense routes; the trainer and the gate held against the CPU; the
+    CLI and the server. -> the phase's numbers"""
+    import tempfile
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.app.application import (
+        RAGApplication)
+    from hybrid_rag_colbertv2_tpu_torch.retrieval import cascade, gate
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
+    from hybrid_rag_colbertv2_tpu_torch.tools.sample_corpus import (
+        write_corpus)
+    with tempfile.TemporaryDirectory() as td:
+        root = Path(td)
+        docs = write_corpus(root / "docs", n_docs=APP_DOCS, seed=0)
+        reset_launch_counts()
+        app, out, parts, steps, metrics = app_upload(root, docs)
+        corpus = app.store.all_chunk_texts()
+        log(f"app upload: {len(docs)} docs -> {out['total_chunks']} chunks "
+            f"on {app.device}; " + ", ".join(f"{k} {v:.2f}"
+                                             for k, v in parts.items()))
+        log(f"app training: {steps['steps']} steps at batch "
+            f"{steps['batch_size']} (+4 negatives each), doc_len "
+            f"{steps['doc_len']}, lr {steps['learning_rate']}; loss "
+            f"{metrics[0]['loss']:.4f} -> {metrics[-1]['loss']:.4f}; step "
+            f"p50 {steps['step_ms_p50']:.3f} ms (mean "
+            f"{steps['step_ms_mean']:.3f}, first {steps['first_step_ms']:.1f}"
+            f"), device {steps['device_ms_per_step']:.3f} ms/step, busy "
+            f"{steps['busy']:.1%}, {steps['host_launches_per_step']:.0f} "
+            f"host-side launches/step")
+
+        # query: reload, then the gate before the retriever binds
+        real_gate, seen = gate.resolve_final_fusion, {}
+
+        def timed_gate(*a, **k):
+            # the first capture empties the allocator's cache
+            # (torch.cuda.graph): empty it first, so that the reserved
+            # bytes before and after differ by what the gate holds
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            seen.update(reserved_before=torch.cuda.memory_reserved(),
+                        allocated_before=torch.cuda.memory_allocated(),
+                        captures=FusedCascade.captures,
+                        entries_before=len(cascade._FUSED_CACHE))
+            t0 = time.perf_counter()
+            res = real_gate(*a, **k)
+            torch.cuda.synchronize()
+            seen.update(gate_s=time.perf_counter() - t0,
+                        reserved_after=torch.cuda.memory_reserved(),
+                        allocated_after=torch.cuda.memory_allocated(),
+                        captures=FusedCascade.captures - seen["captures"],
+                        entries_after=len(cascade._FUSED_CACHE))
+            return res
+        gate.resolve_final_fusion = timed_gate
+        try:
+            t0 = time.perf_counter()
+            app.initialize_chatbot()
+            bind_s = time.perf_counter() - t0
+        finally:
+            gate.resolve_final_fusion = real_gate
+        verdict = [app.config.final_fusion, app.config.fusion_weight_bm25]
+        log(f"app gate: {seen['gate_s']:.2f}s of {bind_s:.2f}s to bind, "
+            f"{seen['captures']} graph captures, fused entries "
+            f"{seen['entries_before']} -> {seen['entries_after']}, "
+            f"memory_reserved {seen['reserved_before'] / 2**20:.1f} -> "
+            f"{seen['reserved_after'] / 2**20:.1f} MiB (allocated "
+            f"{seen['allocated_before'] / 2**20:.1f} -> "
+            f"{seen['allocated_after'] / 2**20:.1f} MiB); verdict {verdict}")
+
+        batches = app_query_batches(corpus)
+        caps = FusedCascade.captures
+        pruned = time_query_batches(app, batches)
+        pruned["captures"] = FusedCascade.captures - caps
+        log(f"app query_batch (int8, dense_prefilter=1024, {verdict}): p50 "
+            f"{pruned['p50_ms']:.3f} ms, p90 {pruned['p90_ms']:.3f} ms over "
+            f"{pruned['calls']} batches of {BATCH} (host clock; median "
+            f"tokenize {pruned['tokenize_ms']:.3f}, copy in + replay + copy "
+            f"out {pruned['replay_ms']:.3f}, store fetch and rows "
+            f"{pruned['fetch_rows_ms']:.3f}); {pruned['captures']} captures "
+            f"while warming")
+        # the forced-exact route, pinned to the verdict (no second gate)
+        exact_app = RAGApplication(app_config(
+            root, dense_prefilter=0, final_fusion=verdict[0],
+            fusion_weight_bm25=verdict[1]), use_ollama=False)
+        exact_app.initialize_chatbot()
+        caps = FusedCascade.captures
+        exact = time_query_batches(exact_app, batches)
+        exact["captures"] = FusedCascade.captures - caps
+        counts = launch_counts()
+        if counts["maxsim_scores_int8"] < 1 or any(
+                n for w, n in counts.items() if w != "maxsim_scores_int8"):
+            raise AssertionError(f"app path launches {counts}: maxsim_int8 "
+                                 "must run, no other kernel")
+        # the kernel at the app's shape against its plain version (after
+        # the counts were read: these launches are not the path's)
+        dense = exact_app.indexes.dense
+        q = exact_app.encoder.encode_queries(batches[0])
+        args = (q, dense.emb_flat, dense.scales, None, dense.doc_lengths,
+                dense.doc_len)
+        got = scan("maxsim_int8", "kernel", *args)
+        torch.cuda.synchronize()
+        err, same = compare(got, scan("maxsim_int8", "plain", *args),
+                            min(100, dense.n_docs))
+        log(f"kernel maxsim_int8 at the app's shape (B={BATCH}, "
+            f"{dense.n_docs} docs x {dense.doc_len}): max_abs_err="
+            f"{err:.3e} top100_ids_equal={same}")
+        exact["kernel_max_abs_err"] = err
+        log(f"app query_batch (int8, dense_prefilter=0): p50 "
+            f"{exact['p50_ms']:.3f} ms, p90 {exact['p90_ms']:.3f} ms (median "
+            f"tokenize {exact['tokenize_ms']:.3f}, replay "
+            f"{exact['replay_ms']:.3f}, fetch and rows "
+            f"{exact['fetch_rows_ms']:.3f}); "
+            f"counted launches over the app path {counts}")
+        prof = {}
+        for label, a in (("1024", app), ("0", exact_app)):
+            pr = profile_calls(f"app int8 dense_prefilter={label}",
+                               a.query_batch, batches)
+            want = {k: (1.0 if label == "0" and k == "maxsim_int8" else 0.0)
+                    for k in KERNELS}
+            if pr["kernels"] != want:
+                raise AssertionError(f"app route {label}: kernel launches "
+                                     f"per call {pr['kernels']}, want {want}")
+            prof[label] = {"device_ms": pr["device_ms"],
+                           "host_launches": pr["host_launches"],
+                           "device_ops": pr["device_ops"]}
+        pruned.update(prof["1024"])
+        exact.update(prof["0"])
+        pruned["busy"] = pruned["device_ms"] / pruned["p50_ms"]
+        exact["busy"] = exact["device_ms"] / exact["p50_ms"]
+        log(f"app route 0 graph: maxsim_int8 launched once per call; "
+            f"device {exact['device_ms']:.3f} ms/call (busy "
+            f"{exact['busy']:.1%}), route 1024 device "
+            f"{pruned['device_ms']:.3f} ms/call (busy {pruned['busy']:.1%})")
+
+        train_cmp = app_train_card_vs_cpu(root, corpus, device)
+        app_graph_after_training(root, corpus, device)
+        gate_cmp = app_gate_card_vs_cpu(app, corpus)
+        cli = app_cli_and_server(app, root, docs, batches[0][0])
+        del exact_app, app
+        gc.collect()
+    return {"chunks": out["total_chunks"], "upload": parts,
+            "train": steps, "loss_first": metrics[0]["loss"],
+            "loss_last": metrics[-1]["loss"],
+            "gate": {k: v for k, v in seen.items()}, "verdict": verdict,
+            "bind_s": bind_s, "route_1024": pruned, "route_0": exact,
+            "app_launches": counts, "train_card_vs_cpu": train_cmp,
+            "gate_card_vs_cpu": gate_cmp, **cli}
 
 
 # runtime calls that put work on the device: kernel and graph launches

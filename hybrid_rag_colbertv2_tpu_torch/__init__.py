@@ -17,7 +17,11 @@ int4-doc, bfloat16, float32), both dense routes (``dense_prefilter`` > 0
 pruned, 0 full scan through the layout's CUDA MaxSim kernel), one CUDA
 graph replay per query batch (``retrieval/cascade.py::fused_cascade_fn``),
 incremental ``add_documents`` and layout ``convert``, fp32 or bf16
-encoder activations. See ROADMAP.md for the rest.
+encoder activations; and the app's default path: ingestion
+(``ingest/``), corpus training of the encoder (``train/``), the measured
+fusion gate (``retrieval/gate.py``), ``app.application.RAGApplication``,
+the CLI (``python -m hybrid_rag_colbertv2_tpu_torch.app.cli``) and the
+HTTP server. See ROADMAP.md for the rest.
 """
 
 __version__ = "0.1.0"

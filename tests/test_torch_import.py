@@ -25,13 +25,20 @@ def test_port_imports_no_jax():
     mods = _port_modules()
     assert f"{PORT}.ops.maxsim" in mods and f"{PORT}.retrieval.cascade" in mods
     assert f"{PORT}.utils.cache" in mods
+    assert {f"{PORT}.app.application", f"{PORT}.app.cli",
+            f"{PORT}.app.server", f"{PORT}.train.trainer",
+            f"{PORT}.retrieval.gate", f"{PORT}.ingest.pdf"} <= set(mods)
+    # neither JAX nor what the card's machine lacks (requests, PyMuPDF)
+    # nor the JAX trainer's optimizer and checkpoint libraries
+    banned = ("jax", "flax", "ml_dtypes", JAX_PKG, "requests", "fitz",
+              "pymupdf4llm", "optax", "orbax")
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
             importlib.import_module(m)
+        banned = {banned!r}
         bad = [k for k in sys.modules
-               if k in ("jax", "flax", "ml_dtypes", {JAX_PKG!r})
-               or k.startswith(("jax.", "flax.", {JAX_PKG + "."!r}))]
+               if k in banned or k.startswith(tuple(b + "." for b in banned))]
         print(repr(bad))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -41,6 +48,8 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
+    from hybrid_rag_colbertv2_tpu_torch.app.application import (
+        RAGApplication)
     from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
     from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
     from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
@@ -49,6 +58,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import HashTokenizer
     from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
         HybridRetriever)
+    from hybrid_rag_colbertv2_tpu_torch.train.trainer import (
+        ColBERTTrainer, TrainConfig)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = RAGConfig(bm25_index_path=str(tmp_path / "bm25"),
@@ -68,6 +79,21 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     ids, _ = HybridRetriever(cfg, mgr, enc, device="cpu").retrieve_batch(
         ["beta gamma"], 2)
     assert ids.shape == (1, 2)
+    # the app and the trainer: the app needs the card unless asked for
+    # the CPU; the trainer runs on its encoder's device
+    app_cfg = RAGConfig(db_path=str(tmp_path / "rag.db"),
+                        bm25_index_path=str(tmp_path / "bm25"),
+                        colbert_index_path=str(tmp_path / "colbert"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        RAGApplication(app_cfg, use_ollama=False)
+    assert RAGApplication(app_cfg, use_ollama=False,
+                          device="cpu").device.type == "cpu"
+    trainer = ColBERTTrainer(enc, TrainConfig(batch_size=2, doc_len=8,
+                                              steps=1))
+    assert trainer.device.type == "cpu"
+    batch = trainer._make_batch([("alpha", "alpha beta"),
+                                 ("delta", "delta epsilon")])
+    assert {t.device.type for t in batch.values()} == {"cpu"}
 
 
 def test_unported_layouts_raise(tmp_path):
