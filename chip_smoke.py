@@ -4,6 +4,8 @@
     python3 chip_smoke.py                 # exits 0 on success; one card
     python3 chip_smoke.py --kernels-only  # build + kernel checks, then stop
     python3 chip_smoke.py --app-only      # build + the app phase, then stop
+    python3 chip_smoke.py --bucketed-only # build + the checkpoint and
+                                          # bucketed phases, then stop
     python3 chip_smoke.py --variant KERNEL:NAME=DIR ...  # + time other builds
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
@@ -57,6 +59,28 @@ per call from torch.profiler, graph and eager. Stdout ends with the ``{"kernels"
 line, the card's ``nvidia-smi`` name and power limit, and the result line
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+
+Then the checkpoint encoder and the bucketed layout, on the same card:
+
+  * a synthetic jinaai/jina-colbert-v2 checkpoint written under
+    ``build/jina_ckpt/`` (config.json of the published geometry, one
+    bf16 ``model.safetensors`` in the published flash layout and names
+    with seeded weights, a BPE tokenizer.json trained on the app
+    corpus), loaded through ``models/convert.py::convert_hf_dir``
+    (~558M parameters), held card vs CPU and timed;
+  * 100,000 docs with lengths uniform in [16, 256], int8, in the
+    bucketed layout (buckets 64, 128, 256) beside the same docs flat at
+    L = 256, served through the checkpoint encoder on routes 1024 and 0,
+    graph vs eager vs the composed oracle, ``maxsim_int8`` once per
+    bucket per route-0 replay, each bucket's scan against its plain
+    version, both layouts timed and profiled;
+  * ~3,000 docs in every layout bucketed (and a variant whose 64-row
+    bucket holds 3 real docs), card vs CPU, fused vs composed, each
+    layout's kernel once per non-empty bucket per route-0 call, then
+    append, convert and save -> load;
+  * the app on the checkpoint over the bucketed layout: upload (no
+    training), the gate, both routes, an incremental upload, a
+    conversion and ``--query`` through the CLI.
 
 ``--variant KERNEL:NAME=DIR`` (repeatable) names a directory laid out
 like ``csrc/`` that holds another version of KERNEL's source (a key of
@@ -211,9 +235,10 @@ def reset_launch_counts() -> None:
 
 def random_layouts(gen, n, doc_len, dim, device, layouts, plants=None,
                    n_topics=N_TOPICS, n_valid=None, zero_docs=(),
-                   zero_rows=(), block=1024):
+                   zero_rows=(), block=1024, min_len=None):
     """Topic-clustered unit-norm token rows (bench.py's generator),
-    lengths in [doc_len/2, doc_len], padding rows zeroed, generated on the
+    lengths in [min_len, doc_len] (default [doc_len/2, doc_len]), padding
+    rows zeroed, generated on the
     card in doc blocks and laid out in each of ``layouts`` by the port's
     quantizers. ``plants`` {doc: (rows, D) unit rows} overwrite a doc's
     first rows; docs from ``n_valid`` on, and ``zero_docs``, have length
@@ -227,7 +252,8 @@ def random_layouts(gen, n, doc_len, dim, device, layouts, plants=None,
     topics = torch.randn(n_topics, dim, generator=gen, device=device)
     topics = topics / topics.norm(dim=-1, keepdim=True)
     assign = torch.randint(0, n_topics, (n,), generator=gen, device=device)
-    lengths = torch.randint(doc_len // 2, doc_len + 1, (n,), generator=gen,
+    lengths = torch.randint(doc_len // 2 if min_len is None else min_len,
+                            doc_len + 1, (n,), generator=gen,
                             device=device, dtype=torch.int32)
     lengths[n_valid:] = 0
     lengths[list(zero_docs)] = 0
@@ -641,7 +667,8 @@ def make_paths(device, encoder, gen):
                           bm25_postings_cap=512), mgr, encoder,
                 device=device) for p in (prefilter, 0)}
             paths[layout] = dict(dense=dense, routes=routes, lex=lex,
-                                 batches=batches)
+                                 batches=batches, corpus=corpus,
+                                 queries=queries)
         torch.cuda.synchronize()
         log(f"dense indexes {', '.join(layouts)}: {n_pad} x {doc_len} x "
             f"{DIM}, "
@@ -652,10 +679,51 @@ def make_paths(device, encoder, gen):
 
 
 def drop_entries(dense) -> None:
-    """Drop every cached fused entry (and its graphs) over ``dense``."""
+    """Drop every cached fused entry (and its graphs) over ``dense``, flat
+    or bucketed."""
     from hybrid_rag_colbertv2_tpu_torch.retrieval import cascade
-    ids = {id(dense.emb_flat)}
+    ids = {id(b.emb_flat) for b in getattr(dense, "buckets", [dense])}
     cascade._FUSED_CACHE.drop_where(lambda _k, e: e.reads_any(ids))
+
+
+def counted_route(label, r, dense, batches, want_kernel, per_call
+                  ) -> tuple:
+    """The counted run of one route: its entries dropped, the counts set
+    to 0, ``batches`` served, the counts read. The wrapper of
+    ``want_kernel`` counts 2 launches (warm-up and capture) per graph
+    and ``per_call`` launches per replay of it; no other wrapper runs.
+    -> outputs, captures and the counted launches"""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
+    drop_entries(dense)
+    reset_launch_counts()
+    caps = FusedCascade.captures
+    outs = [r.retrieve_batch(b) for b in batches]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    caps = FusedCascade.captures - caps
+    want = {w: (2 * caps * per_call if w == want_kernel else 0)
+            for w in WRAPPERS}
+    if caps < 1 or counts != want:
+        raise AssertionError(f"{label}: launches {counts} over {caps} "
+                             f"captures, want {want}")
+    return outs, caps, counts
+
+
+def check_outputs(label, outs, n_docs, planted=None) -> int:
+    """Ids in range, finite scores, and the planted doc first where one
+    is given. -> the first batch's rank-1 id"""
+    import numpy as np
+    for ids, scores in outs:
+        if not ((ids >= -1) & (ids < n_docs)).all():
+            raise AssertionError(f"bad ids on {label}: {ids}")
+        if not np.isfinite(scores[ids >= 0]).all():
+            raise AssertionError(f"non-finite scores on {label}")
+    rank1 = int(outs[0][0][0, 0])
+    if planted is not None and rank1 != planted:
+        raise AssertionError(f"{label}: planted doc {planted} must rank "
+                             f"first, got {rank1}")
+    return rank1
 
 
 def run_path(layout, path) -> int:
@@ -666,41 +734,23 @@ def run_path(layout, path) -> int:
     of its kernel, two per graph, and the replays launch it from the
     graph (the profiler counts those, ``profile_calls``).
     -> launches of the layout's kernel on route 0."""
-    import numpy as np
-    import torch
-    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
     wrapper = KERNELS[LAYOUT_KERNEL[layout]][1]
-    n_docs = path["dense"].n_docs
     launches = 0
     for p, r in path["routes"].items():
-        drop_entries(path["dense"])
-        reset_launch_counts()
-        caps = FusedCascade.captures
-        outs = [r.retrieve_batch(b) for b in path["batches"]]
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        caps = FusedCascade.captures - caps
-        want = {w: (2 * caps if p == 0 and w == wrapper else 0)
-                for w in WRAPPERS}
-        if caps < 1 or counts != want:
-            raise AssertionError(f"{layout} route {p}: launches {counts} "
-                                 f"over {caps} captures, want {want}")
+        outs, caps, counts = counted_route(
+            f"{layout} route {p}", r, path["dense"], path["batches"],
+            wrapper if p == 0 else None, 1)
         if p == 0:
             launches = counts[wrapper]
-        for ids, scores in outs:
-            if ids.shape != (BATCH, 10) or not (
-                    (ids >= -1) & (ids < n_docs)).all():
-                raise AssertionError(f"bad ids on {layout} route {p}: {ids}")
-            if not np.isfinite(scores[ids >= 0]).all():
-                raise AssertionError(f"non-finite scores on {layout} "
-                                     f"route {p}")
-        rank1 = int(outs[0][0][0, 0])
+        if any(ids.shape != (BATCH, 10) for ids, _ in outs):
+            raise AssertionError(f"{layout} route {p}: ids of shape "
+                                 f"{outs[0][0].shape}")
+        rank1 = check_outputs(f"{layout} route {p}", outs,
+                              path["dense"].n_docs, PLANTED_DOC)
         log(f"{layout} dense_prefilter={p}: {caps} graph(s) captured over "
             f"{len(outs)} batches, {counts[wrapper]} counted launches of "
             f"{wrapper} (warm-up and capture); planted doc {PLANTED_DOC} "
             f"-> rank-1 id {rank1}")
-        if rank1 != PLANTED_DOC:
-            raise AssertionError("planted query must return its doc first")
     return launches
 
 
@@ -710,8 +760,8 @@ def eager_batch(r, batch):
     from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
         pack_query_batch)
     cfg = r.config
-    fused = r._build_fused(min(cfg.final_top_k, cfg.fusion_candidates,
-                               r.indexes.dense.n_docs))
+    fused = r.build_entry(min(cfg.final_top_k, cfg.fusion_candidates,
+                              r.indexes.dense.n_docs))
     packed = pack_query_batch(r.encoder, r.indexes.lexical, batch,
                               cfg.query_max_terms, cfg.query_term_buckets)
     return fused.eager(packed)
@@ -1039,8 +1089,7 @@ def kernel_numbers(kernel, path, q_emb, peaks, variants=()):
         # holds a valid row (int8: a nonzero scale; int8-doc: a chunk that
         # starts before the length, always 64 columns wide)
         if layout == "int8":
-            live = (dense.scales.reshape(-1, 64) > 0).any(dim=1)
-            stored_rows = int(live.sum()) * 64
+            stored_rows = live_chunk_rows(dense)
         elif layout == "int8-doc":
             chunks = (dense.doc_lengths.long() + 63) // 64
             stored_rows = int(chunks.clamp(0, (doc_len + 63) // 64).sum()) * 64
@@ -1116,6 +1165,10 @@ def main() -> int:
     from hybrid_rag_colbertv2_tpu_torch.utils.device import (
         set_fp32_matmul_exact)
     set_fp32_matmul_exact()
+    t_main = time.perf_counter()
+
+    def stamp(what: str) -> None:
+        log(f"[{time.perf_counter() - t_main:.1f}s] {what}")
     device = torch.device("cuda")
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1163,8 +1216,15 @@ def main() -> int:
         print(json.dumps({"app": app, "card": card}))
         log("app-only: stopping after the app phase")
         return 0
+    if "--bucketed-only" in sys.argv[1:]:
+        bucketed = phase_bucketed_all(device, *build_lexical(N_DOCS, 0))
+        print(json.dumps({"bucketed": bucketed, "card": card}))
+        log("bucketed-only: stopping after the checkpoint and bucketed "
+            "phases")
+        return 0
 
     # -- phase 2: each kernel vs its plain version at small shapes ------
+    stamp("kernels at small shapes")
     phase_kernel_small(device)
     phase_length_edges(device)
     phase_stress(device, variants)
@@ -1174,6 +1234,7 @@ def main() -> int:
         return 0
 
     # -- the app's default path (its own counted run) ---------------------
+    stamp("the app's default path")
     app = phase_app(device)
 
     # -- phase 3: the main path of every layout, both routes -------------
@@ -1184,6 +1245,7 @@ def main() -> int:
     encoder = ColBERTEncoder(ColBERTConfig.small(vocab_size=8192),
                              HashTokenizer(8192), seed=0, device=device)
     gen = torch.Generator(device=device).manual_seed(0)
+    stamp("the flat main paths")
     paths = make_paths(device, encoder, gen)
     launches = {LAYOUT_KERNEL[lay]: run_path(lay, path)
                 for lay, path in paths.items()}
@@ -1191,6 +1253,7 @@ def main() -> int:
               for lay, path in paths.items()}
 
     # small-input reference: the same cascade on the CPU's plain versions
+    stamp("small cascades card vs CPU, graph vs eager, maintenance")
     for layout, n in check_small_cascade(device, list(paths)).items():
         log(f"small {layout} index, card vs CPU plain versions: final ids "
             f"agree ({n} slots swapped between tied scores)")
@@ -1200,6 +1263,7 @@ def main() -> int:
     phase_bf16_encoder(device)
 
     # -- phase 4: numbers (tracing off; the profile comes last) ----------
+    stamp("timed flat routes, kernel numbers, profiles")
     routes = [(lay, p) for lay, path in paths.items() for p in path["routes"]]
     for lay, p in routes:                      # every graph captured
         paths[lay]["routes"][p].retrieve_batch(paths[lay]["batches"][0])
@@ -1276,6 +1340,16 @@ def main() -> int:
                 f"{cell['host_launches']:.0f} host-side launches/call")
         if p == 0:
             graph_launches[kernel] = prof["graph"]["kernels"][kernel]
+    # -- the checkpoint encoder and the bucketed layout -----------------
+    main_lex = tuple(paths["int8"][k] for k in ("lex", "corpus", "queries"))
+    for path in paths.values():
+        drop_entries(path["dense"])
+    del paths, q_embs
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("the checkpoint encoder and the bucketed layout")
+    bucketed = phase_bucketed_all(device, *main_lex)
+    stamp("whole run")
     rows = [{"name": kernel, "route": "cuda",
              "source": f"{PORT}/csrc/{src}",
              "replaces": f"{JAX_MAXSIM}:{line}",
@@ -1283,9 +1357,13 @@ def main() -> int:
              "graph_launches_per_call": graph_launches[kernel],
              "app_launches": app["app_launches"][KERNELS[kernel][1]]
              if kernel == "maxsim_int8" else 0,
+             "bucketed_launches": bucketed["launches"][layout],
+             "bucketed_graph_launches_per_call":
+                 bucketed["graph_launches_per_call"][layout],
              **nums[kernel]}
-            for kernel, (_, _, _, src, line) in KERNELS.items()]
+            for kernel, (layout, _, _, src, line) in KERNELS.items()]
     print(json.dumps({"app": app, "card": card}))
+    print(json.dumps({"bucketed": bucketed, "card": card}))
     print(json.dumps({"retrieve_batch_ms": lat, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2024,28 +2102,869 @@ def check_small_cascade(device, layouts) -> dict:
                                               final_fusion="rerank"),
                                     mgr, enc, device=dev)
                 out[(dev.type, layout, p)] = r.retrieve_batch(queries)
-    rtol, atol = 1e-4, 1e-3
     swaps = dict.fromkeys(layouts, 0)
     for layout in layouts:
         for p in (1024, 0):
-            gi, gs = out[("cuda", layout, p)]
-            ci, cs = out[("cpu", layout, p)]
-            if not np.allclose(gs, cs, rtol=rtol, atol=atol):
-                raise AssertionError(f"small {layout} cascade scores "
-                                     f"differ, route {p}")
-            for row, j in np.argwhere(gi != ci):
-                # the card's doc in this slot, scored on the CPU: its slot
-                # there, or below the CPU's last slot when it fell out
-                hit = np.flatnonzero(ci[row] == gi[row, j])
-                cpu_score = cs[row, hit[0]] if hit.size else cs[row, -1]
-                if not np.isclose(cpu_score, cs[row, j], rtol=rtol,
-                                  atol=atol):
-                    raise AssertionError(
-                        f"small {layout} cascade ids differ beyond ties, "
-                        f"route {p}: {gi[row]} vs {ci[row]}")
-                swaps[layout] += 1
+            swaps[layout] += tie_swaps(f"small {layout} cascade, route {p}",
+                                       out[("cuda", layout, p)],
+                                       out[("cpu", layout, p)])
     return swaps
 
 
+# -- a checkpoint encoder at the jina-colbert-v2 width ---------------------
+
+# the published jinaai/jina-colbert-v2 geometry (config.json of its
+# jina-xlm-roberta flash backbone)
+JINA = dict(vocab_size=250002, hidden_size=1024, num_hidden_layers=24,
+            num_attention_heads=16, intermediate_size=4096,
+            max_position_embeddings=8194, type_vocab_size=1,
+            layer_norm_eps=1e-5, pad_token_id=1, rotary_emb_base=10000.0)
+JINA_DIM = 128
+JINA_SEED = 11
+# the full-width encoder card vs CPU, both fp32 with TF32 off, on the
+# L2-normalised embeddings
+ENCODER_ATOL = 1e-4
+N_ENCODER_TIMED = 20
+ST_NAMES = {"torch.float32": "F32", "torch.float16": "F16",
+            "torch.bfloat16": "BF16"}
+
+
+def flash_manifest(h=1024, i_=4096, n_layers=24, v=250002, dim=128):
+    """[(key, shape)] of the published jina-colbert-v2 state_dict: the
+    flash backbone under ``bert.`` and the ``linear.weight`` head (the
+    key list ``tests/test_convert_manifest.py`` pins)."""
+    m = [("bert.embeddings.word_embeddings.weight", (v, h)),
+         ("bert.embeddings.token_type_embeddings.weight", (1, h)),
+         ("bert.emb_ln.weight", (h,)), ("bert.emb_ln.bias", (h,)),
+         ("linear.weight", (dim, h))]
+    for li in range(n_layers):
+        pre = f"bert.encoder.layers.{li}"
+        m += [(f"{pre}.mixer.Wqkv.weight", (3 * h, h)),
+              (f"{pre}.mixer.Wqkv.bias", (3 * h,)),
+              (f"{pre}.mixer.out_proj.weight", (h, h)),
+              (f"{pre}.mixer.out_proj.bias", (h,)),
+              (f"{pre}.norm1.weight", (h,)), (f"{pre}.norm1.bias", (h,)),
+              (f"{pre}.norm2.weight", (h,)), (f"{pre}.norm2.bias", (h,)),
+              (f"{pre}.mlp.fc1.weight", (i_, h)),
+              (f"{pre}.mlp.fc1.bias", (i_,)),
+              (f"{pre}.mlp.fc2.weight", (h, i_)),
+              (f"{pre}.mlp.fc2.bias", (h,))]
+    return m
+
+
+def write_safetensors(path: Path, shapes, make, dtype) -> int:
+    """Write a ``.safetensors`` file (the format, without the package):
+    a little-endian u64 header length, the JSON header (padded to 8
+    bytes), then each tensor's raw bytes in header order. ``make(name,
+    shape)`` yields each tensor (any device) as it is written, so only
+    one is held at a time. -> bytes written"""
+    import struct
+    import torch
+    item = torch.empty((), dtype=dtype).element_size()
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, shape in shapes:
+        n = item * int(torch.Size(shape).numel())
+        header[name] = {"dtype": ST_NAMES[str(dtype)], "shape": list(shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)))
+        f.write(raw)
+        for name, shape in shapes:
+            t = make(name, shape).to(dtype).contiguous().cpu()
+            f.write(t.view(torch.uint8).numpy().tobytes())
+    return 8 + len(raw) + off
+
+
+def app_corpus_texts(root: Path) -> list:
+    """The app corpus's paragraphs (``write_corpus(n_docs=APP_DOCS)``)."""
+    from hybrid_rag_colbertv2_tpu_torch.tools.sample_corpus import (
+        write_corpus)
+    docs = write_corpus(root / "docs", n_docs=APP_DOCS, seed=0)
+    return [p.strip() for d in docs for p in d.read_text().split("\n\n")
+            if len(p.strip()) > 40]
+
+
+def write_jina_checkpoint(ckpt: Path, device) -> dict:
+    """config.json of the jina geometry, model.safetensors in the
+    published flash layout (bf16, 0.02 * N(0, 1) from a seeded
+    generator, LayerNorms at 1 / 0), and a BPE tokenizer.json trained by
+    the port's tokenizer on the app corpus. -> seconds and bytes"""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
+        ColBERTTokenizer)
+    ckpt.mkdir(parents=True, exist_ok=True)
+    (ckpt / "config.json").write_text(json.dumps(
+        {"architectures": ["JinaBertModel"], "dim": JINA_DIM, **JINA}))
+    t0 = time.perf_counter()
+    tok = ColBERTTokenizer.train_bpe(app_corpus_texts(ckpt.parent / "tok"))
+    tok.save(ckpt / "tokenizer.json")
+    tok_s = time.perf_counter() - t0
+    gen = torch.Generator(device=device).manual_seed(JINA_SEED)
+
+    def make(name, shape):
+        if name.endswith(("emb_ln.weight", "norm1.weight", "norm2.weight")):
+            return torch.ones(shape)
+        if name.endswith(("emb_ln.bias", "norm1.bias", "norm2.bias")):
+            return torch.zeros(shape)
+        return 0.02 * torch.randn(shape, generator=gen, device=device)
+    t0 = time.perf_counter()
+    nbytes = write_safetensors(
+        ckpt / "model.safetensors",
+        flash_manifest(JINA["hidden_size"], JINA["intermediate_size"],
+                       JINA["num_hidden_layers"], JINA["vocab_size"],
+                       JINA_DIM), make, torch.bfloat16)
+    write_s = time.perf_counter() - t0
+    log(f"checkpoint: {ckpt.name}/model.safetensors {nbytes / 1e9:.3f} GB "
+        f"bf16 written in {write_s:.2f}s; tokenizer.json (vocab "
+        f"{tok.vocab_size}) trained in {tok_s:.2f}s")
+    return {"bytes": nbytes, "write_s": write_s, "tokenizer_s": tok_s,
+            "tokenizer_vocab": tok.vocab_size}
+
+
+def phase_checkpoint(device) -> tuple:
+    """The synthetic jina-colbert-v2 checkpoint: written, loaded through
+    ``convert_hf_dir`` (~560M parameters), a query batch (8 x 32) and 16
+    doc chunks (256 tokens) card vs CPU within ENCODER_ATOL, the query
+    forward and a 32 x 256-token doc batch timed by CUDA events.
+    -> (card encoder, checkpoint dir, numbers)"""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import ColBERTEncoder
+    from hybrid_rag_colbertv2_tpu_torch.models.convert import (
+        colbert_config_from_hf, convert_hf_dir)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
+        ColBERTTokenizer)
+    ckpt = REPO / "build" / "jina_ckpt"
+    out = write_jina_checkpoint(ckpt, device)
+    t0 = time.perf_counter()
+    cfg = colbert_config_from_hf(str(ckpt), query_max_tokens=LQ,
+                                 doc_max_tokens=256)
+    params = convert_hf_dir(str(ckpt), cfg)
+    load_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.values())
+    if not 5.5e8 < n_params < 5.7e8 or cfg.colbert_dim != JINA_DIM:
+        raise AssertionError(f"jina checkpoint: {n_params} parameters")
+    tok = ColBERTTokenizer.load(ckpt / "tokenizer.json")
+    t0 = time.perf_counter()
+    enc = ColBERTEncoder(cfg, tok, params=params, device=device)
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t0
+    # the host-to-card copy rate behind "to the card": the word
+    # embeddings table (1.02 GB fp32) from pageable and from pinned memory
+    table = params["word_embeddings.weight"]
+    h2d = {}
+    for kind, src in (("pageable", table), ("pinned", table.pin_memory())):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dst = src.to(device, non_blocking=kind == "pinned")
+        torch.cuda.synchronize()
+        h2d[kind] = table.numel() * 4 / (time.perf_counter() - t0) / 1e9
+        del dst
+    del table, src
+    texts = app_corpus_texts(ckpt.parent / "tok")
+    queries = [" ".join(t.split()[3:11]) for t in texts[:BATCH]]
+    docs = texts[BATCH:BATCH + 16]
+    cpu = ColBERTEncoder(cfg, tok, params=params, device="cpu")
+    del params
+    t0 = time.perf_counter()
+    want_q = cpu.encode_queries(queries).numpy()
+    want_d, want_l = cpu.encode_docs(docs, doc_len=256)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    got_q = enc.encode_queries(queries).cpu().numpy()
+    got_d, got_l = enc.encode_docs(docs, doc_len=256)
+    err_q = float(np.abs(got_q - want_q).max())
+    err_d = float(np.abs(got_d.cpu().numpy() - want_d.numpy()).max())
+    if max(err_q, err_d) > ENCODER_ATOL or not torch.equal(got_l.cpu(),
+                                                            want_l):
+        raise AssertionError(f"jina encoder card vs CPU: queries {err_q}, "
+                             f"docs {err_d} > {ENCODER_ATOL}")
+    q_ids = torch.as_tensor(np.stack([tok.encode_query(q, LQ)
+                                      for q in queries]), device=device)
+    d_ids, d_len = tok.encode_docs((docs * 2)[:32], 256)
+    d_ids = torch.as_tensor(d_ids, device=device)
+    d_mask = torch.as_tensor(
+        (np.arange(256)[None, :] < d_len[:, None]).astype(np.int32),
+        device=device)
+
+    def p50(fn):
+        ts = []
+        with torch.inference_mode():
+            fn()
+            for _ in range(N_ENCODER_TIMED):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                fn()
+                e1.record()
+                torch.cuda.synchronize()
+                ts.append(e0.elapsed_time(e1))
+        return statistics.median(ts)
+    q_ms = p50(lambda: enc.model(q_ids, torch.ones_like(q_ids)))
+    d_ms = p50(lambda: enc.model(d_ids, d_mask))
+    out.update(n_params=n_params, load_s=load_s, to_card_s=to_card_s,
+               h2d_gb_s=h2d,
+               cpu_forward_s=cpu_s, max_err_queries=err_q,
+               max_err_docs=err_d, query_forward_ms_p50=q_ms,
+               doc_forward_ms_p50=d_ms)
+    log(f"jina checkpoint encoder: {n_params} parameters ({cfg.num_layers}"
+        f"L x {cfg.hidden_size}, FFN {cfg.intermediate_size}, vocab "
+        f"{cfg.vocab_size}, rope base {cfg.rope_base:g}); safetensors read "
+        f"+ convert {load_s:.2f}s, to the card {to_card_s:.2f}s (host to "
+        f"card {h2d['pageable']:.2f} GB/s pageable, {h2d['pinned']:.2f} "
+        f"GB/s pinned); card vs "
+        f"CPU max |diff| queries {err_q:.3e}, docs {err_d:.3e} (limit "
+        f"{ENCODER_ATOL:g}; CPU forward {cpu_s:.1f}s); query forward "
+        f"({BATCH} x {LQ}) p50 {q_ms:.3f} ms, doc forward (32 x 256) p50 "
+        f"{d_ms:.3f} ms (CUDA events, {N_ENCODER_TIMED} calls, fp32, TF32 "
+        f"off)")
+    return enc, ckpt, out
+
+
+# -- the bucketed layout -----------------------------------------------------
+
+BUCKETS = (64, 128, 256)
+BUCKET_MIN_LEN = 16
+N_SMALL_BUCKETED = 3000
+
+
+def bucketed_from_flat(flat, sizes=BUCKETS):
+    """The int8 bucketed index over a flat int8 index's docs: each doc's
+    rows (quantized row by row, so the same as ``BucketedDenseIndex.build``
+    would make from the same rows) moved into the smallest bucket that
+    holds it, each bucket padded to 128 docs, the proxies gathered."""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.index.bucketed import (
+        BucketedDenseIndex)
+    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
+    n, L, d, dev = flat.n_docs, flat.doc_len, flat.dim, flat.device
+    emb3 = flat.emb_flat.reshape(flat.n_pad, L, d)
+    sc2 = flat.scales.reshape(flat.n_pad, L)
+    lens = flat.doc_lengths[:n].cpu().numpy()
+    assign = np.searchsorted(np.asarray(sizes), np.minimum(lens, sizes[-1]))
+    buckets, gids = [], []
+    bucket_of = np.zeros(n, np.int32)
+    row_of = np.zeros(n, np.int32)
+    for bi, size in enumerate(sizes):
+        rows = np.nonzero(assign == bi)[0]
+        if rows.size == 0:
+            continue
+        n_b = rows.size
+        n_pad = ((n_b + 127) // 128) * 128
+        sel = torch.as_tensor(rows, device=dev)
+        e = torch.zeros((n_pad, size, d), dtype=torch.int8, device=dev)
+        s = torch.zeros((n_pad, size), dtype=torch.float32, device=dev)
+        ln = torch.zeros((n_pad,), dtype=torch.int32, device=dev)
+        pooled = torch.zeros((n_pad, d), dtype=flat.pooled.dtype, device=dev)
+        e[:n_b] = emb3[sel, :size]
+        s[:n_b] = sc2[sel, :size]
+        ln[:n_b] = flat.doc_lengths[sel]
+        pooled[:n_b] = flat.pooled[sel]
+        bucket_of[rows] = len(buckets)
+        row_of[rows] = np.arange(n_b, dtype=np.int32)
+        buckets.append(DenseTokenIndex(
+            emb_flat=e.reshape(-1, d), doc_lengths=ln, n_docs=n_b,
+            doc_len=size, dim=d, scales=s.reshape(-1), pooled=pooled))
+        gid = np.full(n_pad, -1, np.int32)
+        gid[:n_b] = rows
+        gids.append(torch.as_tensor(gid, device=dev))
+    return BucketedDenseIndex(
+        buckets=buckets, global_ids=gids,
+        bucket_of=torch.as_tensor(bucket_of, device=dev),
+        row_of=torch.as_tensor(row_of, device=dev), n_docs=n)
+
+
+def composed_vs_fused(label, r, batch, got) -> float:
+    """The fused bucketed entry's result against the composed oracle
+    (``_cascade_bucketed_composed``) on the same batch: ids equal, scores
+    bit-equal or within RTOL, ATOL. -> the largest difference"""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        encode_query_terms)
+    cfg = r.config
+    q_emb = r.encoder.encode_queries(batch)
+    q_terms = torch.as_tensor(encode_query_terms(
+        r.indexes.lexical, batch, cfg.query_max_terms,
+        cfg.query_term_buckets), device=r.device)
+    ids, scores = r._cascade_bucketed_composed(q_emb, q_terms,
+                                               cfg.final_top_k)
+    if not np.array_equal(ids, got[0]) or not np.allclose(
+            scores, got[1], rtol=RTOL, atol=ATOL):
+        raise AssertionError(f"{label}: fused {got[0]} vs composed {ids}")
+    return float(np.abs(scores - got[1]).max())
+
+
+def live_chunk_rows(sub) -> int:
+    """Rows in the 64-row chunks of an int8 index that hold a valid row
+    (the chunks the int8 kernel multiplies)."""
+    return int((sub.scales.reshape(-1, 64) > 0).any(dim=1).sum()) * 64
+
+
+def phase_bucketed_100k(device, encoder, lex, corpus, queries) -> dict:
+    """The full-size bucketed path: 100,000 docs x 128 dims, lengths
+    uniform in [16, 256], int8, buckets (64, 128, 256), beside the same
+    corpus flat at L = 256; queries through the full-width checkpoint
+    encoder, the planted doc made from its query embeddings. Routes 1024
+    and 0 on both, through the graph and eagerly. -> numbers"""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
+    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    from hybrid_rag_colbertv2_tpu_torch.ops.prefilter import (
+        pooled_doc_embeddings)
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        FusedCascade, HybridRetriever)
+    n, L = N_DOCS, BUCKETS[-1]
+    n_pad = ((n + 127) // 128) * 128
+    t0 = time.perf_counter()
+    plant = encoder.encode_queries([queries[0]])[0].clone()
+    gen = torch.Generator(device=device).manual_seed(7)
+    lengths, stores = random_layouts(
+        gen, n_pad, L, DIM, device, ("int8",), n_valid=n,
+        plants={PLANTED_DOC: plant}, min_len=BUCKET_MIN_LEN)
+    emb, scales, _ = stores.pop("int8")
+    flat = DenseTokenIndex(
+        emb_flat=emb, doc_lengths=lengths, n_docs=n, doc_len=L, dim=DIM,
+        scales=scales, pooled=pooled_doc_embeddings(emb, scales, lengths,
+                                                    doc_len=L))
+    bk = bucketed_from_flat(flat)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    del emb, scales
+    pops = [b.n_docs for b in bk.buckets]
+    stored = {"bucketed": sum(b.n_pad * b.doc_len for b in bk.buckets),
+              "flat256": n_pad * L}
+    live = {"bucketed": sum(live_chunk_rows(b) for b in bk.buckets),
+            "flat256": live_chunk_rows(flat)}
+    mem = {"bucketed": bk.memory_bytes(), "flat256": flat.memory_bytes()}
+    log(f"bucketed 100k: {n} docs, lengths [{BUCKET_MIN_LEN}, {L}], "
+        f"buckets {BUCKETS} hold {pops} docs; stored rows "
+        f"{stored['bucketed']} vs {stored['flat256']} flat at L={L}; rows "
+        f"in live 64-row chunks {live['bucketed']} vs {live['flat256']}; "
+        f"memory_bytes {mem['bucketed'] / 1e9:.3f} vs "
+        f"{mem['flat256'] / 1e9:.3f} GB; built in {build_s:.1f}s")
+    batches = [queries[i:i + BATCH] for i in range(0, 3 * BATCH, BATCH)]
+    routes = {}
+    for name, dense in (("bucketed", bk), ("flat256", flat)):
+        mgr = IndexManager(RAGConfig(), encoder, device=device)
+        mgr.lexical, mgr.dense, mgr.corpus = lex, dense, corpus
+        for p in (1024, 0):
+            routes[(name, p)] = HybridRetriever(
+                RAGConfig(dense_prefilter=p, final_fusion="rerank",
+                          bm25_postings_cap=512), mgr, encoder,
+                device=device)
+    nb = len(bk.buckets)
+    out = {"bucket_docs": pops, "stored_rows": stored,
+           "live_chunk_rows": live, "memory_bytes": mem, "build_s": build_s}
+    launches = 0
+    for (name, p), r in routes.items():
+        dense = bk if name == "bucketed" else flat
+        outs, caps, counts = counted_route(
+            f"{name} route {p}", r, dense, batches,
+            "maxsim_scores_int8" if p == 0 else None,
+            nb if name == "bucketed" else 1)
+        check_outputs(f"{name} route {p}", outs, n, PLANTED_DOC)
+        if name == "bucketed" and p == 0:
+            launches = counts["maxsim_scores_int8"]
+        worst = 0.0
+        bit_equal = True
+        for b, got in zip(batches, outs):
+            ei, es = eager_batch(r, b)
+            if not np.array_equal(got[0], ei) or not np.allclose(
+                    got[1], es, rtol=RTOL, atol=ATOL):
+                raise AssertionError(f"{name} route {p}: graph vs eager")
+            bit_equal &= bool(np.array_equal(got[1], es))
+            if name == "bucketed":
+                worst = max(worst, composed_vs_fused(
+                    f"{name} route {p}", r, b, got))
+        log(f"{name} 100k dense_prefilter={p}: {caps} graph(s) over "
+            f"{len(batches)} batches, counted launches {counts}; planted "
+            f"doc {PLANTED_DOC} at rank 1; graph vs eager ids equal, "
+            f"scores bit-equal={bit_equal}"
+            + (f"; fused vs composed ids equal, max |diff| {worst:.3e}"
+               if name == "bucketed" else ""))
+        out[f"{name}/{p}"] = {"graph_eq_eager_bits": bit_equal,
+                              "fused_vs_composed_max_diff": worst}
+    # each bucket's scan top-100 (and flat-256's) against its plain version
+    q_emb = encoder.encode_queries(batches[0])
+    scans = []
+    for label, sub in [(f"bucket L={b.doc_len}", b) for b in bk.buckets] + [
+            ("flat L=256", flat)]:
+        args = (q_emb, sub.emb_flat, sub.scales, None, sub.doc_lengths,
+                sub.doc_len)
+        got = scan("maxsim_int8", "kernel", *args)[:, :sub.n_docs]
+        err, same = compare(got, scan("maxsim_int8", "plain", *args)
+                            [:, :sub.n_docs], 100)
+        k_ms = cuda_ms(lambda a=args: scan("maxsim_int8", "kernel", *a), 20)
+        scans.append({"scan": label, "n_pad": sub.n_pad,
+                      "max_abs_err": err, "top100_ids_equal": same,
+                      "kernel_ms": k_ms})
+        log(f"maxsim_int8 {label} N_pad={sub.n_pad}: max_abs_err={err:.3e} "
+            f"top100_ids_equal={same}; {k_ms:.3f} ms (CUDA events, 20 "
+            "launches)")
+    out["scans"] = scans
+    # timed: interleaved, 0 captures
+    keys = list(routes)
+    for key in keys:
+        routes[key].retrieve_batch(batches[0])
+    times = {(k, how): [] for k in keys for how in ("graph", "eager")}
+    caps = FusedCascade.captures
+    for i in range(N_TIMED_CALLS):
+        for key in keys:
+            r, b = routes[key], batches[i % 3]
+            for how, call in (("graph", r.retrieve_batch),
+                              ("eager", lambda x, r=r: eager_batch(r, x))):
+                t0 = time.perf_counter()
+                call(b)
+                times[(key, how)].append((time.perf_counter() - t0) * 1e3)
+    if FusedCascade.captures != caps:
+        raise AssertionError("bucketed 100k: captures in the timed loop")
+    for ((name, p), how), ts in times.items():
+        cell = out[f"{name}/{p}"].setdefault(how, {})
+        cell.update(p50=statistics.median(ts),
+                    p90=statistics.quantiles(ts, n=10)[-1])
+        log(f"retrieve_batch {name} 100k dense_prefilter={p} {how}: p50 "
+            f"{cell['p50']:.3f} ms, p90 {cell['p90']:.3f} ms ({len(ts)} "
+            "calls, host clock, jina encoder)")
+    graph_launches = 0.0
+    for (name, p), r in routes.items():
+        for how, fn in (("graph", r.retrieve_batch),
+                        ("eager", lambda x, r=r: eager_batch(r, x))):
+            pr = profile_calls(f"{name} 100k dense_prefilter={p} {how}", fn,
+                               batches)
+            want = {k: ((nb if name == "bucketed" else 1.0)
+                        if p == 0 and k == "maxsim_int8" else 0.0)
+                    for k in KERNELS}
+            if pr["kernels"] != want:
+                raise AssertionError(f"{name} route {p} {how}: kernel "
+                                     f"launches per call {pr['kernels']}, "
+                                     f"want {want}")
+            if how == "graph" and pr["host_launches"] != 1.0:
+                raise AssertionError(f"{name} route {p}: "
+                                     f"{pr['host_launches']} host-side "
+                                     "launches per call, want 1")
+            cell = out[f"{name}/{p}"][how]
+            cell.update(device_ms=pr["device_ms"],
+                        busy=pr["device_ms"] / cell["p50"],
+                        host_launches=pr["host_launches"])
+            log(f"{name} 100k dense_prefilter={p} {how}: device "
+                f"{cell['device_ms']:.3f} ms/call, busy {cell['busy']:.1%}, "
+                f"{cell['host_launches']:.0f} host-side launches/call")
+            if name == "bucketed" and p == 0 and how == "graph":
+                graph_launches = pr["kernels"]["maxsim_int8"]
+    out["launches"] = launches
+    out["graph_launches_per_call"] = graph_launches
+    for r in routes.values():
+        drop_entries(r.indexes.dense)
+    return out
+
+
+def phase_bucketed_small(device) -> dict:
+    """~3,000 docs (lengths 1-256) in every layout, buckets (64, 128,
+    256), and a sparse variant whose 64-row bucket holds 3 real docs
+    among its 128 padding slots: per layout and route the card's fused
+    entry against its composed oracle and against the CPU's (plain
+    versions; scores within TIE_RTOL / TIE_ATOL, ids swapped only
+    between tied scores), each bucket's kernel against its plain version,
+    and the layout's kernel once per non-empty bucket per route-0 call
+    (2 counted launches per bucket per graph: warm-up and capture; the
+    profiler on the replays). Then ``append`` into a populated and into
+    an empty bucket, ``convert`` and save -> load, card vs CPU.
+    -> {"launches": {wrapper: n}, ...}"""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.bucketed import (
+        BucketedDenseIndex)
+    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
+    from hybrid_rag_colbertv2_tpu_torch.index.lexical import LexicalIndex
+    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
+        ColBERTConfig, ColBERTEncoder)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import HashTokenizer
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import (
+        HybridRetriever)
+    layouts = ("int8", "int8-doc", "int4-doc", "bfloat16", "float32")
+    rng = np.random.default_rng(12)
+    n, L = N_SMALL_BUCKETED, BUCKETS[-1]
+    vocab = np.array([f"w{i}" for i in range(900)])
+    corpus = [" ".join(r) for r in vocab[rng.integers(0, 900, (n, 20))]]
+    queries = [" ".join(rng.choice(vocab, 5)) for _ in range(8)]
+    queries[1] = corpus[77]
+    lex = LexicalIndex.build(corpus, postings_cap=512)
+    topics = rng.standard_normal((64, DIM)).astype(np.float32)
+    x = (topics[rng.integers(0, 64, n)][:, None, :]
+         + 0.35 * rng.standard_normal((n, L, DIM)).astype(np.float32))
+    x /= np.linalg.norm(x, axis=-1, keepdims=True)
+    full_len = rng.integers(1, L + 1, n).astype(np.int32)
+    sparse_len = np.maximum(full_len, 65).astype(np.int32)
+    sparse_len[[5, 500, 2999]] = [1, 33, 64]
+    encs = {dev: ColBERTEncoder(ColBERTConfig.small(vocab_size=4096,
+                                                    num_layers=2),
+                                HashTokenizer(4096), seed=5, device=dev)
+            for dev in ("cuda", "cpu")}
+    wrapper_of = {lay: KERNELS[LAYOUT_KERNEL[lay]][1] for lay in layouts}
+    counted = dict.fromkeys(layouts, 0)
+    per_call = dict.fromkeys(layouts, 0.0)
+    swaps = 0
+    for variant, lens in (("full", full_len), ("sparse", sparse_len)):
+        xt, lt = torch.from_numpy(x), torch.from_numpy(lens)
+        for layout in layouts:
+            idx = {}
+            for dev in ("cuda", "cpu"):
+                idx[dev] = BucketedDenseIndex.build(
+                    xt.to(dev), lt, bucket_sizes=BUCKETS, dtype=layout)
+            nb = len(idx["cuda"].buckets)
+            pops = [b.n_docs for b in idx["cuda"].buckets]
+            if variant == "sparse" and pops[0] != 3:
+                raise AssertionError(f"sparse variant buckets {pops}")
+            q = encs["cuda"].encode_queries(queries)
+            kernel = LAYOUT_KERNEL[layout]
+            for sub in idx["cuda"].buckets:
+                args = (q, sub.emb_flat, sub.scales, sub.doc_scales,
+                        sub.doc_lengths, sub.doc_len)
+                if layout == "bfloat16":
+                    args = (q, sub.emb_flat, None, None, sub.doc_lengths,
+                            sub.doc_len)
+                compare(scan(kernel, "kernel", *args)[:, :sub.n_docs],
+                        scan(kernel, "plain", *args)[:, :sub.n_docs],
+                        min(10, sub.n_docs))
+            outs = {}
+            for p in (1024, 0):
+                for dev in ("cuda", "cpu"):
+                    mgr = IndexManager(RAGConfig(), encs[dev], device=dev)
+                    mgr.lexical, mgr.dense = lex, idx[dev]
+                    r = HybridRetriever(RAGConfig(dense_prefilter=p,
+                                                  final_fusion="rerank"),
+                                        mgr, encs[dev], device=dev)
+                    if dev == "cuda":
+                        got, caps, counts = counted_route(
+                            f"small {variant} {layout} route {p}", r,
+                            idx[dev], [queries],
+                            wrapper_of[layout] if p == 0 else None, nb)
+                        counted[layout] += sum(counts.values())
+                        outs[dev] = got[0]
+                        composed_vs_fused(f"small {variant} {layout} "
+                                          f"route {p}", r, queries, got[0])
+                        if p == 0 and variant == "full":
+                            pr = profile_calls(
+                                f"small {layout} route 0 graph",
+                                r.retrieve_batch, [queries], calls=2)
+                            want = {k: float(nb if k == kernel else 0)
+                                    for k in KERNELS}
+                            if pr["kernels"] != want:
+                                raise AssertionError(
+                                    f"small {layout}: {pr['kernels']} "
+                                    f"per call, want {want}")
+                            per_call[layout] = pr["kernels"][kernel]
+                        drop_entries(idx[dev])
+                    else:
+                        outs[dev] = r.retrieve_batch(queries)
+                swaps += tie_swaps(f"small {variant} {layout} route {p}",
+                                   outs["cuda"], outs["cpu"])
+            log(f"small bucketed {variant} {layout}: buckets {pops}; card "
+                f"vs CPU, fused vs composed and each bucket's kernel vs "
+                f"plain agree on both routes")
+    # maintenance on the card vs the CPU: append into a populated bucket
+    # (L=256) and into an empty one (L=128), convert, save -> load
+    base = (full_len <= 64) | (full_len > 128)
+    new = np.nonzero(~base)[0][:40].tolist() + np.nonzero(
+        full_len > 128)[0][-20:].tolist()
+    keep = np.nonzero(base)[0][:2000]
+    res = {}
+    for dev in ("cuda", "cpu"):
+        xt = torch.from_numpy(x).to(dev)
+        lt = torch.from_numpy(full_len)
+        b = BucketedDenseIndex.build(xt[keep], lt[keep],
+                                     bucket_sizes=BUCKETS, dtype="int8")
+        before = [s.doc_len for s in b.buckets]
+        b = b.append(xt[new], lt[new], bucket_sizes=BUCKETS)
+        c = b.convert("int4-doc", block=256)
+        root = REPO / "build" / f"smoke_bucketed_{dev}"
+        c.save(root)
+        back = BucketedDenseIndex.load(root, device=dev)
+        q = encs[dev].encode_queries(queries)
+        res[dev] = (before, [s.doc_len for s in b.buckets], b, c,
+                    c.search_topk(q, 10), back.search_topk(q, 10))
+    if res["cuda"][:2] != res["cpu"][:2] or res["cuda"][1] != [64, 256, 128]:
+        raise AssertionError(f"append buckets {res['cuda'][:2]} vs "
+                             f"{res['cpu'][:2]}")
+    for i in (2, 3):
+        for sc, sp in zip(res["cuda"][i].buckets, res["cpu"][i].buckets):
+            for name in ("emb_flat", "doc_lengths", "scales", "doc_scales"):
+                a, bb = getattr(sc, name), getattr(sp, name)
+                if a is None:
+                    continue
+                ok = (torch.allclose(a.cpu(), bb, rtol=1e-6, atol=0)
+                      if name.endswith("scales") else torch.equal(a.cpu(), bb))
+                if not ok:
+                    raise AssertionError(f"bucketed maintenance: {name} "
+                                         "differs card vs CPU")
+    for dev in ("cuda", "cpu"):
+        (v1, i1), (v2, i2) = res[dev][4:6]
+        if not (torch.equal(i1, i2) and torch.equal(v1, v2)):
+            raise AssertionError("bucketed save -> load changed results")
+    (gv, gi), (cv, ci) = res["cuda"][4], res["cpu"][4]
+    tie_swaps("converted bucketed top-10", (gi.cpu().numpy(),
+                                            gv.cpu().numpy()),
+              (ci.numpy(), cv.numpy()))
+    log(f"bucketed maintenance: append into buckets {res['cuda'][0]} opened "
+        f"{res['cuda'][1]}, convert int8 -> int4-doc and save -> load: card "
+        f"equals CPU (codes bit-equal, scales rtol 1e-6), loaded results "
+        f"bit-equal; {swaps} final slots swapped between tied scores over "
+        f"the small checks")
+    # the 100k phase builds its buckets by moving rows of a flat int8
+    # index: the same codes as BucketedDenseIndex.build from the rows
+    t = torch.from_numpy(x[:600]).to(device)
+    ln = torch.from_numpy(full_len[:600])
+    moved = bucketed_from_flat(DenseTokenIndex.build(t, ln, doc_len=L,
+                                                     dtype="int8"))
+    built = BucketedDenseIndex.build(t, ln, bucket_sizes=BUCKETS,
+                                     dtype="int8")
+    for a, bb in zip(moved.buckets, built.buckets):
+        if not (torch.equal(a.emb_flat, bb.emb_flat)
+                and torch.equal(a.scales, bb.scales)
+                and torch.equal(a.doc_lengths, bb.doc_lengths)):
+            raise AssertionError("bucketed_from_flat differs from build")
+    return {"launches": counted, "graph_launches_per_call": per_call,
+            "tie_swaps": swaps}
+
+
+def tie_swaps(label, card, cpu) -> int:
+    """Card (kernels) vs CPU (plain versions) final results: scores within
+    TIE_RTOL / TIE_ATOL, ids equal but where the two swapped docs' CPU
+    scores tie within it. -> swapped slots"""
+    import numpy as np
+    (gi, gs), (ci, cs) = card, cpu
+    if not np.allclose(gs, cs, rtol=TIE_RTOL, atol=TIE_ATOL):
+        raise AssertionError(f"{label}: scores card vs CPU")
+    n = 0
+    for row, j in np.argwhere(gi != ci):
+        hit = np.flatnonzero(ci[row] == gi[row, j])
+        cpu_score = cs[row, hit[0]] if hit.size else cs[row, -1]
+        if not np.isclose(cpu_score, cs[row, j], rtol=TIE_RTOL,
+                          atol=TIE_ATOL):
+            raise AssertionError(f"{label}: ids differ beyond ties: "
+                                 f"{gi[row]} vs {ci[row]}")
+        n += 1
+    return n
+
+
+# the app on the checkpoint over the bucketed layout: the app phase's
+# corpus and chunking (two buckets populated: the chunks run 30-130 BPE
+# tokens), the checkpoint's geometry, doc_max_tokens 256
+CKPT_APP_CONFIG = dict(min_chunk_size=48, max_chunk_size=96,
+                       doc_max_tokens=256)
+
+
+def phase_checkpoint_app(device, ckpt: Path) -> dict:
+    """The app over ``encoder_checkpoint`` (the synthetic jina directory)
+    and ``index_layout="bucketed"``, ``final_fusion="auto"``: upload (no
+    training), the gate, ``query_batch`` on routes 1024 and 0 with
+    ``maxsim_int8`` once per non-empty bucket per route-0 call, a second
+    upload of one doc on the incremental ``add_documents`` path,
+    ``convert_index("int8-doc")``, and ``--query`` through the CLI.
+    -> numbers"""
+    import tempfile
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.app.application import (
+        RAGApplication)
+    from hybrid_rag_colbertv2_tpu_torch.config import MeshConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.bucketed import (
+        BucketedDenseIndex)
+    from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
+    from hybrid_rag_colbertv2_tpu_torch.ingest.processor import (
+        DocumentProcessor)
+    from hybrid_rag_colbertv2_tpu_torch.retrieval import cascade, gate
+    from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
+    from hybrid_rag_colbertv2_tpu_torch.tools.sample_corpus import (
+        write_corpus)
+    from hybrid_rag_colbertv2_tpu_torch.train import trainer as trainer_mod
+
+    def config(root, **over):
+        kw = dict(CKPT_APP_CONFIG, encoder_checkpoint=str(ckpt),
+                  mesh=MeshConfig(index_layout="bucketed",
+                                  doc_token_buckets=BUCKETS))
+        kw.update(over)
+        return app_config(root, **kw)
+    out = {}
+    with tempfile.TemporaryDirectory() as td:
+        root = Path(td)
+        docs = write_corpus(root / "docs", n_docs=APP_DOCS, seed=0)
+        app = RAGApplication(config(root), use_ollama=False)
+        with CallTimer({
+                "ingest": (DocumentProcessor, "process_document"),
+                "encoder_init": (RAGApplication, "_make_encoder"),
+                "train_total": (RAGApplication, "_train_encoder"),
+                "train_steps": (trainer_mod.ColBERTTrainer, "train")}) as t:
+            t0 = time.perf_counter()
+            up = app.index_documents([str(p) for p in docs])
+            total = time.perf_counter() - t0
+        parts = {"total_s": total, "ingest_s": t.total["ingest"],
+                 "encoder_init_s": t.total["encoder_init"],
+                 "train_s": t.total["train_total"] + t.total["train_steps"],
+                 **{f"index_{k}_s": v for k, v in up["timings"].items()}}
+        dense = app.indexes.dense
+        if (not isinstance(dense, BucketedDenseIndex) or parts["train_s"]
+                or app._trained_marker_path().exists()):
+            raise AssertionError("checkpoint app: a bucketed index and no "
+                                 "training expected")
+        pops = {b.doc_len: b.n_docs for b in dense.buckets}
+        if len(pops) < 2:
+            raise AssertionError(f"checkpoint app: buckets {pops}, want two "
+                                 "or more non-empty")
+        log(f"checkpoint app upload: {len(docs)} docs -> {up['total_chunks']}"
+            f" chunks, buckets {pops} (doc_len: docs), "
+            f"{dense.memory_bytes() / 2**20:.2f} MiB; "
+            + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+            + " (0 training steps)")
+        real_gate, seen = gate.resolve_final_fusion, {}
+
+        def timed_gate(*a, **k):
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            seen.update(reserved_before=torch.cuda.memory_reserved(),
+                        captures=FusedCascade.captures)
+            t0 = time.perf_counter()
+            res = real_gate(*a, **k)
+            torch.cuda.synchronize()
+            seen.update(gate_s=time.perf_counter() - t0,
+                        reserved_after=torch.cuda.memory_reserved(),
+                        captures=FusedCascade.captures - seen["captures"],
+                        bucketed_entries=sum(
+                            isinstance(e, cascade.FusedBucketedCascade)
+                            for e in cascade._FUSED_CACHE._d.values()))
+            return res
+        gate.resolve_final_fusion = timed_gate
+        try:
+            app.initialize_chatbot()
+        finally:
+            gate.resolve_final_fusion = real_gate
+        verdict = [app.config.final_fusion, app.config.fusion_weight_bm25]
+        if not seen or not seen["bucketed_entries"]:
+            raise AssertionError("the gate must measure bucketed entries")
+        log(f"checkpoint app gate: {seen['gate_s']:.2f}s, "
+            f"{seen['captures']} graph captures, memory_reserved "
+            f"{seen['reserved_before'] / 2**20:.1f} -> "
+            f"{seen['reserved_after'] / 2**20:.1f} MiB; verdict {verdict}")
+        corpus = app.store.all_chunk_texts()
+        batches = app_query_batches(corpus)
+        nb = len(dense.buckets)
+        routes = {"1024": app}
+        exact = RAGApplication(config(root, dense_prefilter=0,
+                                      final_fusion=verdict[0],
+                                      fusion_weight_bm25=verdict[1]),
+                               use_ollama=False)
+        exact.initialize_chatbot()
+        routes["0"] = exact
+        for label, a in routes.items():
+            cell = time_query_batches(a, batches)
+            pr = profile_calls(f"checkpoint app bucketed route {label}",
+                               a.query_batch, batches)
+            want = {k: (float(nb) if label == "0" and k == "maxsim_int8"
+                        else 0.0) for k in KERNELS}
+            if pr["kernels"] != want:
+                raise AssertionError(f"checkpoint app route {label}: "
+                                     f"{pr['kernels']}, want {want}")
+            cell.update(device_ms=pr["device_ms"],
+                        busy=pr["device_ms"] / cell["p50_ms"],
+                        host_launches=pr["host_launches"])
+            out[f"route_{label}"] = cell
+            log(f"checkpoint app query_batch (bucketed int8, "
+                f"dense_prefilter={label}, {verdict}): p50 "
+                f"{cell['p50_ms']:.3f} ms, p90 {cell['p90_ms']:.3f} ms "
+                f"(tokenize {cell['tokenize_ms']:.3f}, replay "
+                f"{cell['replay_ms']:.3f}, fetch and rows "
+                f"{cell['fetch_rows_ms']:.3f}); device "
+                f"{cell['device_ms']:.3f} ms/call, busy {cell['busy']:.1%}"
+                f"; maxsim_int8 {pr['kernels']['maxsim_int8']:.0f} per "
+                "call")
+        # the CLI in a subprocess over this index returns app.query's ids
+        query = batches[0][0]
+        want = [r["chunk_id"] for r in app.query(query)]
+        app.config.save(root / "app.json")
+        t0 = time.perf_counter()
+        qr = subprocess.run(
+            [sys.executable, "-m", f"{PORT}.app.cli", "--json",
+             "--no-generate", "--config", str(root / "app.json"), "--query",
+             query], cwd=REPO, capture_output=True, text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        if qr.returncode != 0:
+            raise AssertionError(f"CLI --query failed: {qr.stderr[-2000:]}")
+        got = [r["chunk_id"] for r in json.loads(
+            qr.stdout.strip().splitlines()[-1])]
+        if got != want:
+            raise AssertionError(f"CLI --query ids {got}, app.query {want}")
+        log(f"checkpoint app CLI --query --json: ids equal app.query's "
+            f"({cli_s:.1f}s, process start and checkpoint load included)")
+        # one more doc: the incremental path appends into the bucketed index
+        extra = root / "docs_extra" / "extra.md"
+        extra.parent.mkdir()
+        extra.write_text("# Zyzzyva\n\nzyzzyva glossolalia xylophone "
+                         "quixotic marker chunk about the appended "
+                         "document and its incremental upload.\n")
+        n_before = dense.n_docs
+        t0 = time.perf_counter()
+        up2 = app.index_documents([str(extra)])
+        add_s = time.perf_counter() - t0
+        timings = up2["timings"]
+        if ("colbert_append" not in timings or "colbert_build" in timings
+                or app.indexes.dense.n_docs <= n_before
+                or not isinstance(app.indexes.dense, BucketedDenseIndex)):
+            raise AssertionError(f"second upload: {timings}, want the "
+                                 "incremental add_documents path")
+        hit = app.query("zyzzyva glossolalia xylophone quixotic")
+        log(f"checkpoint app second upload: +"
+            f"{app.indexes.dense.n_docs - n_before} chunk(s) by "
+            f"add_documents in {add_s:.2f}s ({', '.join(sorted(timings))}); "
+            f"the new chunk ranks {1 + [r['chunk_id'] for r in hit].index(n_before) if n_before in [r['chunk_id'] for r in hit] else 'absent'}")
+        t0 = time.perf_counter()
+        conv = app.convert_index("int8-doc")
+        conv_s = time.perf_counter() - t0
+        rows = app.query_batch(batches[0])
+        if app.indexes.dense.quant != "int8-doc" or not all(rows):
+            raise AssertionError("convert_index to int8-doc must serve")
+        log(f"checkpoint app convert_index: {conv} in {conv_s:.2f}s; "
+            "query_batch serves from the converted index")
+        out.update(chunks=up["total_chunks"], upload=parts,
+                   bucket_docs=pops, gate=seen, verdict=verdict,
+                   cli_query_s=cli_s, add_documents_s=add_s,
+                   convert_s=conv_s)
+        del app, exact, routes
+        gc.collect()
+    return out
+
+
+
+def phase_bucketed_all(device, lex, corpus, queries) -> dict:
+    """This slice's phases: the checkpoint encoder, the bucketed 100k
+    path on it, the small five-layout bucketed checks and the app on the
+    checkpoint over the bucketed layout. -> numbers, with each layout's
+    counted launches and per-call graph launches on the bucketed paths"""
+    t0 = time.perf_counter()
+    enc, ckpt, encoder = phase_checkpoint(device)
+    big = phase_bucketed_100k(device, enc, lex, corpus, queries)
+    del enc
+    gc.collect()
+    small = phase_bucketed_small(device)
+    app = phase_checkpoint_app(device, ckpt)
+    launches = dict(small["launches"])
+    launches["int8"] += big["launches"]
+    per_call = dict(small["graph_launches_per_call"])
+    per_call["int8"] = big["graph_launches_per_call"]
+    secs = time.perf_counter() - t0
+    log(f"checkpoint and bucketed phases: {secs:.1f}s")
+    return {"encoder": encoder, "bucketed_100k": big, "small": small,
+            "checkpoint_app": app, "launches": launches,
+            "graph_launches_per_call": per_call, "seconds": secs}
+
 if __name__ == "__main__":
     sys.exit(main())
+

@@ -5,9 +5,12 @@ device, the card unless ``device="cpu"`` is passed, and reads and writes
 the JAX package's files next to the index (``tokenizer.json``,
 ``encoder_params.npz``, ``encoder_config.json``, ``encoder_trained.json``,
 ``fusion_gate.json``), so an index directory built by either package
-serves from the other. Not ported yet, and raising where reached: an
-``encoder_checkpoint`` (it needs ``models/convert.py``), and serving
-sharded over several cards (``parallel/``); ROADMAP.md §1 items 6 and 8.
+serves from the other. The encoder comes from a local HF checkpoint
+directory (``encoder_checkpoint``: its ``tokenizer.json``,
+``config.json`` and weights through ``models/convert.py``) or is
+self-contained (corpus BPE, preset geometry, trained on the corpus).
+Not ported yet, and raising where reached: serving sharded over several
+cards (``parallel/``; ROADMAP.md §1 item 8).
 
 Equivalent of the reference ``RAGApplication``
 (local_rag_complete.py:1111-1238): DB setup, sidecar health check,
@@ -28,6 +31,7 @@ REPL, ``print_stats``. Differences:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
@@ -85,55 +89,106 @@ class RAGApplication:
     def _make_encoder(self, corpus: Sequence[str]) -> ColBERTEncoder:
         """Build (or load) tokenizer + encoder, persisted with the index.
 
-        Self-contained mode: corpus-trained BPE + preset geometry + random
-        init (optionally ICT-trained), or the tokenizer and params a
-        previous upload persisted. The JAX package's other mode, an
-        ``encoder_checkpoint`` directory, raises until
-        ``models/convert.py`` is ported."""
+        With ``encoder_checkpoint`` pointing at a local HF checkpoint dir
+        (e.g. a downloaded jinaai/jina-colbert-v2), everything comes from
+        the checkpoint: the tokenizer (its tokenizer.json — vocab ids MUST
+        match the embedding table), the geometry/rotary settings (its
+        config.json via models/convert.colbert_config_from_hf), and the
+        weights (convert_hf_dir, both vanilla and rotary-flash namings).
+        Otherwise: self-contained mode — corpus-trained BPE + preset
+        geometry + random init (optionally ICT-trained), or the tokenizer
+        and params a previous upload persisted."""
         cfg = self.config
-        if cfg.encoder_checkpoint:
-            raise NotImplementedError(
-                "encoder_checkpoint needs models/convert.py, which the port "
-                "does not have yet (ROADMAP.md section 1, item 6)")
-        tok_path = Path(cfg.tokenizer_path)
-        if tok_path.exists():
-            tokenizer = ColBERTTokenizer.load(tok_path)
-        else:
-            # extend BPE training with the synonym lexicon so synonym
-            # words ("60", "rapid") get whole tokens instead of byte
-            # fallbacks — queries phrased with synonyms then tokenize
-            # comparably to corpus prose (train/lexicon.py)
-            from ..train.lexicon import lexicon_sentences
-            tokenizer = ColBERTTokenizer.train_bpe(
-                (list(corpus) + lexicon_sentences()) if corpus
-                else ["placeholder corpus"],
-                vocab_size=cfg.tokenizer_vocab_size,
-                fold_numeric=cfg.tokenizer_fold_numeric)
-            if corpus:
-                # never persist a placeholder-trained tokenizer: an
-                # indexes dir seeded by a pre-upload --query/--chat
-                # would pin byte-level-pieces tokenization for every
-                # later real upload
-                tokenizer.save(tok_path)
+        ckpt = Path(cfg.encoder_checkpoint) if cfg.encoder_checkpoint \
+            else None
+        tokenizer = None
+        if ckpt is not None:
+            if not (ckpt / "tokenizer.json").exists():
+                # pairing a corpus BPE with the checkpoint's embedding
+                # table would index arbitrary rows of a foreign vocab —
+                # silent garbage rankings. Fail loudly instead.
+                raise FileNotFoundError(
+                    f"encoder_checkpoint {ckpt} has no tokenizer.json; "
+                    "checkpoint weights require the checkpoint's own "
+                    "tokenizer (vocab ids must match its embedding table)")
+            tokenizer = ColBERTTokenizer.load(ckpt / "tokenizer.json")
+            log.info("Tokenizer loaded from checkpoint %s (vocab %d)",
+                     ckpt, tokenizer.vocab_size)
+        if tokenizer is None:
+            tok_path = Path(cfg.tokenizer_path)
+            if tok_path.exists():
+                tokenizer = ColBERTTokenizer.load(tok_path)
+            else:
+                # extend BPE training with the synonym lexicon so synonym
+                # words ("60", "rapid") get whole tokens instead of byte
+                # fallbacks — queries phrased with synonyms then tokenize
+                # comparably to corpus prose (train/lexicon.py)
+                from ..train.lexicon import lexicon_sentences
+                tokenizer = ColBERTTokenizer.train_bpe(
+                    (list(corpus) + lexicon_sentences()) if corpus
+                    else ["placeholder corpus"],
+                    vocab_size=cfg.tokenizer_vocab_size,
+                    fold_numeric=cfg.tokenizer_fold_numeric)
+                if corpus:
+                    # never persist a placeholder-trained tokenizer: an
+                    # indexes dir seeded by a pre-upload --query/--chat
+                    # would pin byte-level-pieces tokenization for every
+                    # later real upload
+                    tokenizer.save(tok_path)
 
-        enc_cfg = _PRESETS[cfg.encoder_preset](
-            vocab_size=max(tokenizer.vocab_size, 8),
-            query_max_tokens=cfg.query_max_tokens,
-            doc_max_tokens=cfg.doc_max_tokens,
-            # activations dtype; params stay fp32
-            dtype=getattr(torch, str(getattr(cfg, "encoder_dtype",
-                                             "float32"))),
-            # self-contained encoders: guaranteed exact-token-match
-            # affinity (see config.encoder_lexical_anchor)
-            lexical_anchor=cfg.encoder_lexical_anchor,
-        )
+        # activations dtype; params stay fp32
+        enc_dtype = getattr(torch, str(getattr(cfg, "encoder_dtype",
+                                               "float32")))
+        enc_cfg = None
+        if ckpt is not None and (ckpt / "config.json").exists():
+            from ..models.convert import colbert_config_from_hf
+            enc_cfg = colbert_config_from_hf(
+                str(ckpt), query_max_tokens=cfg.query_max_tokens,
+                doc_max_tokens=cfg.doc_max_tokens, dtype=enc_dtype)
+            log.info("Encoder geometry from checkpoint config.json: "
+                     "%dL H=%d %s", enc_cfg.num_layers, enc_cfg.hidden_size,
+                     enc_cfg.position_embedding)
+        if enc_cfg is None:
+            enc_cfg = _PRESETS[cfg.encoder_preset](
+                vocab_size=max(tokenizer.vocab_size, 8),
+                query_max_tokens=cfg.query_max_tokens,
+                doc_max_tokens=cfg.doc_max_tokens,
+                dtype=enc_dtype,
+                # self-contained encoders only: guaranteed exact-token-
+                # match affinity (see config.encoder_lexical_anchor); a
+                # checkpoint's converted params carry no anchor table
+                lexical_anchor=(0.0 if ckpt is not None
+                                else cfg.encoder_lexical_anchor),
+            )
+        params = None
+        if ckpt is not None:
+            from ..models.convert import convert_hf_dir
+            params = convert_hf_dir(str(ckpt), enc_cfg)
+            head = params.get("colbert_linear.weight")
+            if head is not None:
+                # the projection head's true output dim wins over the
+                # config default (config.json describes the backbone only)
+                if head.shape[0] != enc_cfg.colbert_dim:
+                    enc_cfg = dataclasses.replace(
+                        enc_cfg, colbert_dim=int(head.shape[0]))
+            else:
+                # backbone-only checkpoint: a random projection head (the
+                # backbone still carries the semantics; the head is a
+                # random rotation of it), 0.02 * N(0, 1) from the seed
+                gen = torch.Generator().manual_seed(cfg.encoder_seed)
+                params["colbert_linear.weight"] = 0.02 * torch.randn(
+                    (enc_cfg.colbert_dim, enc_cfg.hidden_size),
+                    generator=gen)
+                log.warning("checkpoint has no projection head — "
+                            "random-initialized colbert_linear")
+            log.info("Encoder weights converted from %s", ckpt)
         params_path, cfg_path = self._encoder_paths()
-        params = (ColBERTEncoder.load_params(str(params_path))
-                  if params_path.exists() else None)
+        if params is None and params_path.exists():
+            params = ColBERTEncoder.load_params(str(params_path))
         fresh_init = params is None
         encoder = ColBERTEncoder(enc_cfg, tokenizer, params=params,
                                  seed=cfg.encoder_seed, device=self.device)
-        if fresh_init:
+        if fresh_init and ckpt is None:
             # self-contained mode: seed the semantic prior a pretrained
             # checkpoint carries — synonym token pairs ("sixty"/"60")
             # start with IDENTICAL embedding rows; ICT training refines

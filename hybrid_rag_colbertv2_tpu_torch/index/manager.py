@@ -1,5 +1,4 @@
-"""Index manager — port of ``hybrid_rag_colbertv2_tpu/index/manager.py``
-(flat layout).
+"""Index manager — port of ``hybrid_rag_colbertv2_tpu/index/manager.py``.
 
 Owns the lexical (BM25 CSR) and dense (ColBERT token-embedding) indexes
 over one chunk corpus: builds both from the corpus, persists both in the
@@ -12,13 +11,14 @@ from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Dict, Optional, Protocol, Sequence, Tuple
+from typing import Dict, Optional, Protocol, Sequence, Tuple, Union
 
 import torch
 
 from ..config import RAGConfig
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import StageTimer, get_logger
+from .bucketed import BucketedDenseIndex
 from .dense import DenseTokenIndex, pick_bucket
 from .lexical import LexicalIndex
 
@@ -46,16 +46,11 @@ class IndexManager:
         self.encoder = encoder
         self.device = resolve_device(device)
         self.lexical: Optional[LexicalIndex] = None
-        self.dense: Optional[DenseTokenIndex] = None
+        self.dense: Optional[Union[DenseTokenIndex,
+                                   BucketedDenseIndex]] = None
         self.corpus: Optional[list] = None
         self.timer = StageTimer()
         self._csr: Tuple = (None, {})
-
-    def _require_flat(self) -> None:
-        if self.config.mesh.index_layout != "single":
-            raise NotImplementedError(
-                "the bucketed index layout comes with the port of "
-                "index/bucketed.py (ROADMAP.md)")
 
     def lexical_csr(self) -> Dict[str, torch.Tensor]:
         """The lexical CSR arrays (indptr, post_docs, post_weights) on the
@@ -82,10 +77,11 @@ class IndexManager:
                  self.timer.timings["bm25_build"])
         return self.lexical
 
-    def build_dense(self, corpus: Sequence[str]) -> DenseTokenIndex:
+    def build_dense(self, corpus: Sequence[str]
+                    ) -> Union[DenseTokenIndex, BucketedDenseIndex]:
         """Encode the corpus and lay the token embeddings into the padded
-        flat index at the smallest covering length bucket."""
-        self._require_flat()
+        flat index at the smallest covering length bucket, or into one
+        sub-index per length bucket (``index_layout="bucketed"``)."""
         if self.encoder is None:
             raise RuntimeError(
                 "IndexManager needs an encoder to build the dense index")
@@ -94,17 +90,27 @@ class IndexManager:
         with self.timer.stage("colbert_build"):
             max_len = int(lengths.max()) if lengths.shape[0] else 1
             bucket = pick_bucket(max_len, self.config.mesh.doc_token_buckets)
+            # "auto" resolves by projected residency (the single-bucket
+            # estimate is conservative for the bucketed layout)
             dtype = self.config.mesh.resolve_index_dtype(
                 len(corpus), bucket, dim=int(embs.shape[-1]),
                 device=self.device)
             if dtype != self.config.mesh.index_dtype:
                 log.info("index_dtype=auto -> %s (%d docs x %d tokens)",
                          dtype, len(corpus), bucket)
-            self.dense = DenseTokenIndex.build(
-                embs.to(self.device), lengths, doc_len=bucket, dtype=dtype)
+            if self.config.mesh.index_layout == "bucketed":
+                self.dense = BucketedDenseIndex.build(
+                    embs.to(self.device), lengths,
+                    bucket_sizes=self.config.mesh.doc_token_buckets,
+                    dtype=dtype)
+            else:
+                self.dense = DenseTokenIndex.build(
+                    embs.to(self.device), lengths, doc_len=bucket,
+                    dtype=dtype)
             self.dense.save(self.config.colbert_index_path)
-        log.info("Dense index: %d docs, %.2f MB (encode %.2fs, build %.2fs)",
-                 self.dense.n_docs, self.dense.memory_bytes() / 2**20,
+        log.info("Dense index: %d docs [%s], %.2f MB (encode %.2fs, build "
+                 "%.2fs)", self.dense.n_docs, self.config.mesh.index_layout,
+                 self.dense.memory_bytes() / 2**20,
                  self.timer.timings["colbert_encode"],
                  self.timer.timings["colbert_build"])
         return self.dense
@@ -117,11 +123,11 @@ class IndexManager:
     def add_documents(self, full_corpus: Sequence[str]) -> None:
         """Incremental update: ``full_corpus`` is the WHOLE corpus in
         global-id order with the new chunks appended at the end. Only the
-        new chunks are encoded, at the index's ``doc_len``, and appended
-        (``DenseTokenIndex.append``); the lexical CSR is rebuilt on the
+        new chunks are encoded, at the flat index's ``doc_len`` or the
+        largest configured bucket, and appended (``DenseTokenIndex.append``
+        / ``BucketedDenseIndex.append``); the lexical CSR is rebuilt on the
         host. Rebuilds everything when nothing is loaded or the corpus
         shrank. A live retriever rebinds on its next call."""
-        self._require_flat()
         full_corpus = list(full_corpus)
         if self.dense is None or self.dense.n_docs > len(full_corpus):
             self.build_all(full_corpus)
@@ -133,11 +139,19 @@ class IndexManager:
             return
         if self.encoder is None:
             raise RuntimeError("IndexManager needs an encoder to add docs")
+        bucketed = isinstance(self.dense, BucketedDenseIndex)
+        enc_len = (max(self.config.mesh.doc_token_buckets) if bucketed
+                   else self.dense.doc_len)
         with self.timer.stage("colbert_encode_new"):
-            embs, lengths = self.encoder.encode_docs(
-                new_texts, doc_len=self.dense.doc_len)
+            embs, lengths = self.encoder.encode_docs(new_texts,
+                                                     doc_len=enc_len)
         with self.timer.stage("colbert_append"):
-            self.dense = self.dense.append(embs, lengths)
+            if bucketed:
+                self.dense = self.dense.append(
+                    embs, lengths,
+                    bucket_sizes=self.config.mesh.doc_token_buckets)
+            else:
+                self.dense = self.dense.append(embs, lengths)
             self.dense.save(self.config.colbert_index_path)
         log.info("Dense index +%d docs -> %d total (encode %.2fs, "
                  "append %.2fs)", len(new_texts), self.dense.n_docs,
@@ -151,13 +165,10 @@ class IndexManager:
         self.lexical = LexicalIndex.load(self.config.bm25_index_path)
         meta = json.loads(
             (Path(self.config.colbert_index_path) / "meta.json").read_text())
-        if "n_buckets" in meta:
-            raise NotImplementedError(
-                f"{self.config.colbert_index_path} holds a bucketed index; "
-                "that layout comes with the port of index/bucketed.py "
-                "(ROADMAP.md)")
-        self.dense = DenseTokenIndex.load(self.config.colbert_index_path,
-                                          device=self.device)
+        loader = (BucketedDenseIndex if "n_buckets" in meta
+                  else DenseTokenIndex)
+        self.dense = loader.load(self.config.colbert_index_path,
+                                 device=self.device)
 
     def is_built(self) -> bool:
         return (Path(self.config.bm25_index_path, "meta.json").exists()

@@ -364,13 +364,18 @@ class ColBERTEncoder:
         self.cfg = config
         self.tokenizer = tokenizer
         self.doc_batch_size = doc_batch_size
-        self.model = ColBERTModel(config)
         if params is None:
+            self.model = ColBERTModel(config)
             self.model.reset_parameters(torch.Generator().manual_seed(seed))
             log.info("ColBERTEncoder: random-initialized params "
                      "(%d layers, H=%d)", config.num_layers,
                      config.hidden_size)
         else:
+            # no default init of weights about to be overwritten (at the
+            # jina width that init alone takes seconds on the host)
+            with torch.device("meta"):
+                self.model = ColBERTModel(config)
+            self.model.to_empty(device=self.device)
             self.model.load_state_dict(params)
         self.model.to(self.device).eval()
 

@@ -1,5 +1,5 @@
 """The hybrid retrieval cascade — port of
-``hybrid_rag_colbertv2_tpu/retrieval/cascade.py`` (flat layout).
+``hybrid_rag_colbertv2_tpu/retrieval/cascade.py``.
 
 Behavioral contract (reference ``HybridRetriever.retrieve``,
 local_rag_complete.py:894-935):
@@ -20,6 +20,12 @@ the encoder's parameters and the index tensors at fixed addresses, so
 the cache keys on those tensors' identities as well as the JAX key, each
 entry holds them, and a retriever that sees a new index evicts the
 entries bound to the old one. On the CPU the same entries run eagerly.
+
+A length-bucketed index (index/bucketed.py) is served the same way by
+``bucketed_cascade`` / ``fused_bucketed_cascade_fn``: per bucket the
+pruned top-k or the layout's kernel scan, the global-id merge, BM25, RRF
+and a rerank that gathers each candidate from its home bucket, in one
+graph.
 """
 
 from __future__ import annotations
@@ -32,11 +38,12 @@ import numpy as np
 import torch
 
 from ..config import RAGConfig, effective_final_fusion
+from ..index.bucketed import BucketedDenseIndex
 from ..index.dense import DenseTokenIndex
 from ..index.manager import IndexManager
 from ..ops.bm25 import bm25_topk_device
 from ..ops.fusion import final_topk_select, rrf_from_topk, union_floor_split
-from ..ops.maxsim import (maxsim_scores, maxsim_scores_int4_doc,
+from ..ops.maxsim import (NEG_INF, maxsim_scores, maxsim_scores_int4_doc,
                           maxsim_scores_int8, maxsim_scores_int8_doc)
 from ..ops.prefilter import candidate_sims, maxsim_topk_pruned
 from ..ops.quant import doc_row_scales
@@ -193,6 +200,123 @@ def hybrid_cascade(
     return final_ids, top_vals, debug
 
 
+# per bucket, the operands ``bucketed_cascade`` reads (an empty tensor
+# where a layout has none)
+BUCKET_OPERANDS = ("emb_flat", "scales", "doc_lengths", "pooled",
+                   "doc_scales", "global_ids")
+
+
+def bucketed_cascade(
+    q_emb: torch.Tensor,          # (B, Lq, D) query token embeddings
+    q_terms: torch.Tensor,        # (B, Q) BM25 term ids, -1 padded
+    indptr: torch.Tensor,
+    post_docs: torch.Tensor,
+    post_weights: torch.Tensor,
+    bucket_of: torch.Tensor,      # (N,) home bucket of each doc
+    row_of: torch.Tensor,         # (N,) row within its bucket
+    flat: Sequence[torch.Tensor],  # BUCKET_OPERANDS for each bucket
+    *,
+    geoms: Sequence[Tuple[int, int, str]],   # (n_pad, doc_len, quant)
+    n_docs: int,
+    max_postings: int,
+    k_each: int,
+    k_dense: int,
+    k_fuse: int,
+    k_final: int,
+    rrf_k: int,
+    prefilter: int,
+    approx_recall: float,         # accepted for parity; top-k is exact
+    final_fusion: str,
+    fusion_weight_bm25: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cascade over a length-bucketed index (JAX
+    ``fused_bucketed_cascade_fn``): per-bucket dense top-k (pruned, or
+    the layout's kernel scan) -> global ids (padding rows -1, -1e30) ->
+    a merged top-k over the concatenated lists (ties in bucket order,
+    then rank) -> BM25 -> RRF -> an exact fp32 rerank that reads each
+    candidate from its home bucket, in the stored dtype, dequantized on
+    the sims after the products -> ``final_topk_select``.
+    -> (final_ids (B, k_final) int32, final scores)"""
+    n_ops = len(BUCKET_OPERANDS)
+    assert len(flat) == n_ops * len(geoms)
+    kd = k_dense
+    lv_all, gi_all = [], []
+    for bi, (n_b, dl, quant) in enumerate(geoms):
+        emb, sc, lens, pooled, dsc, gid = flat[n_ops * bi:n_ops * (bi + 1)]
+        keb = min(kd, n_b)
+        if prefilter > 0:
+            lv, li = maxsim_topk_pruned(
+                q_emb, emb, sc if quant == "int8" else None, lens, pooled,
+                doc_scales=(dsc if quant in ("int8-doc", "int4-doc")
+                            else None),
+                doc_len=dl, n_docs=n_b, n_candidates=prefilter, k=keb,
+                approx_recall=approx_recall)
+        else:
+            if quant == "int4-doc":
+                ms = maxsim_scores_int4_doc(q_emb, emb, dsc, lens,
+                                            doc_len=dl)
+            elif quant == "int8-doc":
+                ms = maxsim_scores_int8_doc(q_emb, emb, dsc, lens,
+                                            doc_len=dl)
+            elif quant == "int8":
+                ms = maxsim_scores_int8(q_emb, emb, sc, lens, doc_len=dl)
+            else:   # a float32 bucket is scanned in float32
+                ms = maxsim_scores(q_emb, emb, lens, doc_len=dl)
+            lv, li = top_k(ms, keb)
+        safe = torch.clamp(li, 0, n_b - 1).long()
+        g = torch.where(li >= 0, gid[safe], -1)        # padding rows: -1
+        lv_all.append(torch.where(g >= 0, lv, NEG_INF))
+        gi_all.append(g.to(torch.int32))
+    lv = torch.cat(lv_all, dim=1)
+    gi = torch.cat(gi_all, dim=1)
+    ms_vals, pos = top_k(lv, min(kd, n_docs, lv.shape[1]))
+    ms_ids = torch.gather(gi, 1, pos)
+    ms_ids = torch.where(ms_vals > -1e29, ms_ids, -1)
+
+    bm25_vals, bm25_ids = bm25_topk_device(
+        q_terms, indptr, post_docs, post_weights,
+        n_docs=n_docs, max_postings=max_postings, k=min(k_each, n_docs))
+
+    w = fusion_weight_bm25
+    fm = union_floor_split(k_final, w) if final_fusion == "union" else (0, 0)
+    _, fused_ids = rrf_from_topk(
+        bm25_ids, ms_ids, k=k_fuse, rrf_k=rrf_k,
+        weights=(2.0 * w, 2.0 * (1.0 - w)), floor_m=fm)
+
+    # routed rerank: each candidate's home bucket and row; per bucket the
+    # fp32 sims of the gathered stored rows, the dequantization after the
+    # products (sim(q, s*e) = s * (q . e)); non-live candidates keep 0
+    # and final_topk_select masks them
+    q32 = q_emb.to(torch.float32)
+    live = fused_ids >= 0
+    safe_c = torch.clamp(fused_ids, 0, n_docs - 1).long()
+    cand_bucket = bucket_of[safe_c]
+    cand_row = row_of[safe_c]
+    rerank = torch.zeros(fused_ids.shape, dtype=torch.float32,
+                         device=q_emb.device)
+    for bi, (n_b, dl, quant) in enumerate(geoms):
+        emb, sc, lens, _, dsc, _ = flat[n_ops * bi:n_ops * (bi + 1)]
+        own = live & (cand_bucket == bi)
+        rows = torch.clamp(cand_row, 0, n_b - 1).long()      # (B, kf)
+        packed4 = quant == "int4-doc"
+        docs = emb.reshape(n_b, dl // 2 if packed4 else dl, -1)[rows]
+        sims = candidate_sims(q32, docs, packed_pairs=packed4)
+        if quant == "int8":
+            sims = sims * sc.reshape(n_b, dl)[rows][:, :, None, :]
+        elif quant in ("int8-doc", "int4-doc"):
+            sims = sims * doc_row_scales(dsc, rows, dl)[:, :, None, :]
+        lb = torch.where(own, lens[rows], 0)
+        tok = torch.arange(dl, device=emb.device)
+        valid = tok < lb[..., None]                          # (B, kf, L)
+        sims = torch.where(valid[:, :, None, :], sims, NEG_INF)
+        rerank = torch.where(own, sims.amax(dim=-1).sum(dim=-1), rerank)
+
+    final_ids, top_vals = final_topk_select(
+        rerank, fused_ids, k_final, rrf_k=rrf_k, final_fusion=final_fusion,
+        weight_cand=w, bm25_ids=bm25_ids, dense_ids=ms_ids)
+    return final_ids.to(torch.int32), top_vals
+
+
 # (model geometry, query_len, statics, binding) -> FusedCascade.
 # Bounded LRU: serving processes probing many distinct k values get the
 # hot ks cached and the rest evicted, and fresh retriever instances over
@@ -273,7 +397,7 @@ class FusedCascade:
         # the parameters the graphs read, kept even if the model's own
         # attributes are later replaced
         self.params = tuple(model.parameters())
-        self.device = binding["emb_flat"].device
+        self.device = binding["indptr"].device
         self._lock = threading.Lock()
         self._graphs: Dict[Tuple[int, ...], _Graph] = {}
 
@@ -334,6 +458,52 @@ def fused_cascade_fn(model, query_len: int, statics: Dict,
         key, lambda: FusedCascade(model, query_len, statics, binding))
 
 
+class FusedBucketedCascade(FusedCascade):
+    """``FusedCascade`` over a length-bucketed index: encoder forward +
+    ``bucketed_cascade`` (the callable of JAX's
+    ``fused_bucketed_cascade_fn``), captured and replayed the same way.
+    ``binding`` names the lexical CSR, ``bucket_of``, ``row_of`` and each
+    bucket's ``BUCKET_OPERANDS`` as ``b{i}.{name}``."""
+
+    def __init__(self, model, query_len: int, bucket_geoms, statics: Dict,
+                 binding: Dict[str, torch.Tensor]):
+        super().__init__(model, query_len, statics, binding)
+        self.geoms = tuple(bucket_geoms)
+        self.flat = [binding[f"b{i}.{name}"] for i in range(len(self.geoms))
+                     for name in BUCKET_OPERANDS]
+
+    def forward(self, packed: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        lq = self.query_len
+        t = self.binding
+        with torch.inference_mode():
+            q_ids = packed[:, :lq].long()
+            q_emb = self.model(q_ids, torch.ones_like(q_ids))
+            return bucketed_cascade(
+                q_emb, packed[:, lq:], t["indptr"], t["post_docs"],
+                t["post_weights"], t["bucket_of"], t["row_of"], self.flat,
+                geoms=self.geoms, **self.statics)
+
+
+def fused_bucketed_cascade_fn(model, query_len: int, bucket_geoms,
+                              statics: Dict,
+                              binding: Dict[str, torch.Tensor]
+                              ) -> FusedBucketedCascade:
+    """Memoized encoder forward + the whole bucketed cascade in ONE
+    dispatch per batch. ``bucket_geoms``: (n_pad, doc_len, quant) per
+    bucket. The key is JAX's (model geometry, query length, bucket
+    geometries, statics, "bucketed") plus the identities of the model's
+    parameters and of the bound tensors, as in ``fused_cascade_fn``."""
+    key = (model.cfg, query_len, tuple(bucket_geoms),
+           tuple(sorted(statics.items())),
+           tuple(_identity(p) for p in model.parameters()),
+           tuple((name, _identity(t)) for name, t in binding.items()),
+           "bucketed")
+    return _FUSED_CACHE.get_or_build(
+        key, lambda: FusedBucketedCascade(model, query_len, bucket_geoms,
+                                          statics, binding))
+
+
 class HybridRetriever:
     """Host-side wrapper: tokenize -> encoder + cascade on the device
     (``fused_cascade_fn``: one CUDA graph replay per batch on the card)
@@ -360,6 +530,8 @@ class HybridRetriever:
             raise RuntimeError("indexes not built/loaded")
         self._bind_lock = threading.Lock()
         self._bound: Tuple = ()
+        # every tensor the current binding's fused entries read
+        self._reads: Tuple = ()
         self._lex_dev: Dict[str, torch.Tensor] = {}
         self._bind_index()
 
@@ -367,23 +539,26 @@ class HybridRetriever:
         """The manager's current lexical index, dense index and the
         dense tensors a fused entry reads."""
         lex, dense = self.indexes.lexical, self.indexes.dense
+        if isinstance(dense, BucketedDenseIndex):
+            return (lex, dense, dense.bucket_of, dense.row_of,
+                    *(t for b, gid in zip(dense.buckets, dense.global_ids)
+                      for t in (b.emb_flat, b.scales, b.doc_lengths,
+                                b.pooled, b.doc_scales, gid)))
         return (lex, dense, dense.emb_flat, dense.scales, dense.doc_lengths,
                 dense.pooled, dense.doc_scales)
 
     def _bind_index(self) -> None:
         """(Re)capture the current index: the lexical CSR on the device
         (moved once per lexical index by the manager), the prefilter
-        vectors if this retriever's route reads them. Entries of
-        ``_FUSED_CACHE`` that read a tensor of the old binding which the
-        new one dropped are evicted, so the old index's memory is freed
-        once its other holders let go (IndexManager.add_documents
-        replaces both indexes)."""
-        lex = self.indexes.lexical
+        vectors if this retriever's route reads them, and for a bucketed
+        index each bucket's ``BUCKET_OPERANDS`` (JAX ``_bucketed_flat``:
+        an empty tensor where a layout has no such tensor) and the bucket
+        geometries.
+        Entries of ``_FUSED_CACHE`` that read a tensor of the old binding
+        which the new one dropped are evicted, so the old index's memory
+        is freed once its other holders let go
+        (IndexManager.add_documents replaces both indexes)."""
         dense = self.indexes.dense
-        if not isinstance(dense, DenseTokenIndex):
-            raise NotImplementedError(
-                "the bucketed layout comes with the port of "
-                "index/bucketed.py (ROADMAP.md)")
         if dense.device != self.device:
             raise ValueError(f"dense index is on {dense.device}, the "
                              f"retriever on {self.device}")
@@ -392,16 +567,36 @@ class HybridRetriever:
             raise ValueError(f"the lexical CSR is on "
                              f"{lex_dev['indptr'].device}, the retriever "
                              f"on {self.device}")
-        if getattr(self.config, "dense_prefilter", 0) > 0:
-            dense.ensure_pooled()
-        old = [t for t in (*self._bound[2:], *self._lex_dev.values())
-               if t is not None]
+        prefilter = getattr(self.config, "dense_prefilter", 0)
+        bucketed = isinstance(dense, BucketedDenseIndex)
+        subs = dense.buckets if bucketed else [dense]
+        if prefilter > 0:
+            for b in subs:
+                b.ensure_pooled()
+        old = [t for t in self._reads if t is not None]
         self._lex_dev = lex_dev
+        # b{i}.{name} -> the tensor the fused bucketed entry reads
+        self._bucketed_ops: Dict[str, torch.Tensor] = {}
+        if bucketed:
+            empty = torch.empty((0,), dtype=torch.float32,
+                                device=self.device)
+            for i, (b, gid) in enumerate(zip(dense.buckets,
+                                             dense.global_ids)):
+                ops = (b.emb_flat, empty if b.scales is None else b.scales,
+                       b.doc_lengths, b.pooled if prefilter > 0 else empty,
+                       empty if b.doc_scales is None else b.doc_scales, gid)
+                self._bucketed_ops.update(
+                    (f"b{i}.{name}", t)
+                    for name, t in zip(BUCKET_OPERANDS, ops))
+            self._bucketed_geoms = tuple(
+                (b.n_pad, b.doc_len, b.quant) for b in dense.buckets)
         # strong references: the ids compared in _check_binding stay
         # unique while bound
         self._bound = self._index_objects()
         self._bound_key = tuple(map(id, self._bound)) + (dense.n_docs,)
-        keep = {id(t) for t in (*self._bound[2:], *lex_dev.values())}
+        self._reads = (*self._bound[2:], *self._bucketed_ops.values(),
+                       *lex_dev.values())
+        keep = {id(t) for t in self._reads if t is not None}
         stale = {id(t) for t in old} - keep
         if stale:
             n = _FUSED_CACHE.drop_where(lambda _k, e: e.reads_any(stale))
@@ -415,14 +610,17 @@ class HybridRetriever:
             self._bind_index()
 
     def _statics(self, k_final: int) -> Dict:
+        """The cascade's static kwargs; a bucketed index has no single
+        ``doc_len`` / ``is_int8`` (its geometries key the entry)."""
         cfg = self.config
         lex, dense = self._bound[:2]
+        flat = (dict(doc_len=dense.doc_len, is_int8=dense.is_int8)
+                if isinstance(dense, DenseTokenIndex) else {})
         return dict(
             prefilter=getattr(cfg, "dense_prefilter", 0),
             n_docs=dense.n_docs,
             max_postings=lex.max_postings,
-            doc_len=dense.doc_len,
-            is_int8=dense.is_int8,
+            **flat,
             k_each=min(cfg.bm25_top_k, dense.n_docs),
             k_dense=min(cfg.colbert_top_k, dense.n_docs),
             k_fuse=min(cfg.fusion_candidates, dense.n_docs),
@@ -452,6 +650,58 @@ class HybridRetriever:
                                 self.encoder.cfg.query_max_tokens, statics,
                                 binding)
 
+    def _build_fused_bucketed(self, k_final: int) -> FusedBucketedCascade:
+        """The bucketed counterpart of ``_build_fused``: encoder forward +
+        per-bucket dense top-k + BM25 + fusion + routed rerank in ONE
+        dispatch with ONE packed transfer."""
+        dense = self._bound[1]
+        binding = dict(self._lex_dev, bucket_of=dense.bucket_of,
+                       row_of=dense.row_of, **self._bucketed_ops)
+        return fused_bucketed_cascade_fn(
+            self.encoder.model, self.encoder.cfg.query_max_tokens,
+            self._bucketed_geoms, self._statics(k_final), binding)
+
+    def _cascade_bucketed_composed(self, q_emb: torch.Tensor,
+                                   q_terms: torch.Tensor, k_final: int
+                                   ) -> Tuple[np.ndarray, np.ndarray]:
+        """The cascade over a bucketed index composed from the index's own
+        methods (``search_topk``, ``rerank_scores``) — several separate
+        dispatches. Kept, as in JAX, as the equality oracle for the fused
+        path; ``retrieve_batch`` uses the fused path."""
+        cfg = self.config
+        lex, dense = self._bound[:2]
+        n = dense.n_docs
+        with torch.inference_mode():
+            _, bi = bm25_topk_device(
+                q_terms, self._lex_dev["indptr"], self._lex_dev["post_docs"],
+                self._lex_dev["post_weights"], n_docs=n,
+                max_postings=lex.max_postings, k=min(cfg.bm25_top_k, n))
+            mv, mi = dense.search_topk(
+                q_emb, min(cfg.colbert_top_k, n),
+                getattr(cfg, "dense_prefilter", 0),
+                getattr(cfg, "approx_topk_recall", 0.95))
+            mi = torch.where(mv > -1e29, mi, -1).to(torch.int32)
+            w = getattr(cfg, "fusion_weight_bm25", 0.5)
+            mode = effective_final_fusion(cfg)
+            kfin = min(k_final, cfg.fusion_candidates, n)
+            fm = union_floor_split(kfin, w) if mode == "union" else (0, 0)
+            _, fused_ids = rrf_from_topk(
+                bi, mi, k=min(cfg.fusion_candidates, n), rrf_k=cfg.rrf_k,
+                weights=(2.0 * w, 2.0 * (1.0 - w)), floor_m=fm)
+            rerank = dense.rerank_scores(q_emb, fused_ids)
+            final_ids, tv = final_topk_select(
+                rerank, fused_ids, min(kfin, rerank.shape[1]),
+                rrf_k=cfg.rrf_k, final_fusion=mode, weight_cand=w,
+                bm25_ids=bi, dense_ids=mi)
+        return final_ids.cpu().numpy(), tv.cpu().numpy()
+
+    def build_entry(self, k_final: int) -> FusedCascade:
+        """The fused entry ``retrieve_batch`` replays for ``k_final``, by
+        the bound index's layout."""
+        if isinstance(self._bound[1], BucketedDenseIndex):
+            return self._build_fused_bucketed(k_final)
+        return self._build_fused(k_final)
+
     def retrieve_batch(
         self, queries: Sequence[str], top_k_final: Optional[int] = None,
         *, timings_out: Optional[Dict[str, float]] = None,
@@ -466,7 +716,7 @@ class HybridRetriever:
         with self._bind_lock:       # one consistent binding per call
             self._check_binding()
             lex, dense = self._bound[:2]
-            fused = self._build_fused(
+            fused = self.build_entry(
                 min(k, cfg.fusion_candidates, dense.n_docs))
         lt: Dict[str, float] = {} if timings_out is None else timings_out
         with self.timer.stage("tokenize", out=lt):

@@ -279,9 +279,11 @@ def test_chat_and_stats(world, tmp_path):
 
 
 def test_unported_parts_raise(tmp_path, monkeypatch):
+    # an encoder_checkpoint is ported (models/convert.py): a directory
+    # without the checkpoint's tokenizer.json raises as JAX's app does
     cfg = RAGConfig(**_kw(tmp_path, encoder_checkpoint=str(tmp_path)))
     app = RAGApplication(cfg, use_ollama=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         app._make_encoder(["some text"])
     # sharded serving on several cards waits for parallel/
     app.config.final_fusion = "rrf"

@@ -27,11 +27,13 @@ def test_port_imports_no_jax():
     assert f"{PORT}.utils.cache" in mods
     assert {f"{PORT}.app.application", f"{PORT}.app.cli",
             f"{PORT}.app.server", f"{PORT}.train.trainer",
-            f"{PORT}.retrieval.gate", f"{PORT}.ingest.pdf"} <= set(mods)
-    # neither JAX nor what the card's machine lacks (requests, PyMuPDF)
-    # nor the JAX trainer's optimizer and checkpoint libraries
+            f"{PORT}.retrieval.gate", f"{PORT}.ingest.pdf",
+            f"{PORT}.models.convert", f"{PORT}.index.bucketed"} <= set(mods)
+    # neither JAX nor what the card's machine lacks (requests, PyMuPDF,
+    # safetensors) nor the JAX trainer's optimizer and checkpoint
+    # libraries
     banned = ("jax", "flax", "ml_dtypes", JAX_PKG, "requests", "fitz",
-              "pymupdf4llm", "optax", "orbax")
+              "pymupdf4llm", "optax", "orbax", "safetensors")
     code = textwrap.dedent(f"""
         import importlib, sys
         for m in {mods!r}:
@@ -51,6 +53,8 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     from hybrid_rag_colbertv2_tpu_torch.app.application import (
         RAGApplication)
     from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.bucketed import (
+        BucketedDenseIndex)
     from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
     from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
     from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
@@ -74,6 +78,13 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
     mgr.build_all(["alpha beta gamma", "beta gamma delta", "delta epsilon"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DenseTokenIndex.load(cfg.colbert_index_path)
+    BucketedDenseIndex.build(
+        torch.zeros((2, 8, 32)), torch.tensor([3, 8]), bucket_sizes=(32,),
+        dtype="int8").save(tmp_path / "bucketed")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        BucketedDenseIndex.load(tmp_path / "bucketed")
+    assert BucketedDenseIndex.load(tmp_path / "bucketed",
+                                   device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HybridRetriever(cfg, mgr, enc)
     ids, _ = HybridRetriever(cfg, mgr, enc, device="cpu").retrieve_batch(
@@ -97,13 +108,19 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
 
 
 def test_unported_layouts_raise(tmp_path):
-    """Every flat layout builds and serves; what is still unported (the
-    bucketed layout) raises; ``auto`` resolves to int8 on the CPU."""
+    """Every layout builds and serves, the bucketed one too: a bucketed
+    directory the JAX package saved loads through the manager (it used to
+    raise before index/bucketed.py was ported); ``auto`` resolves to int8
+    on the CPU."""
     import jax.numpy as jnp
     import numpy as np
+    from hybrid_rag_colbertv2_tpu.index.bucketed import (
+        BucketedDenseIndex as JaxBucketedDenseIndex)
     from hybrid_rag_colbertv2_tpu.index.dense import (
         DenseTokenIndex as JaxDenseTokenIndex)
     from hybrid_rag_colbertv2_tpu_torch.config import MeshConfig, RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.bucketed import (
+        BucketedDenseIndex)
     from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
     from hybrid_rag_colbertv2_tpu_torch.index.lexical import LexicalIndex
     from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
@@ -130,12 +147,17 @@ def test_unported_layouts_raise(tmp_path):
                                       dtype=dtype)
         assert built.quant == dtype
         assert built.search_scores(torch.from_numpy(q)).shape == (1, 3)
-    (tmp_path / "bk").mkdir()
-    (tmp_path / "bk" / "meta.json").write_text('{"n_buckets": 2}')
+    bk = JaxBucketedDenseIndex.build(jnp.asarray(embs), jnp.asarray(lengths),
+                                     bucket_sizes=(32, 64), dtype="int8")
+    bk.save(tmp_path / "bk")
     cfg = RAGConfig(bm25_index_path=str(tmp_path / "bm25"),
                     colbert_index_path=str(tmp_path / "bk"))
     LexicalIndex.build(["alpha beta"]).save(cfg.bm25_index_path)
-    with pytest.raises(NotImplementedError, match="bucketed"):
-        IndexManager(cfg, device="cpu").load()
+    mgr = IndexManager(cfg, device="cpu")
+    mgr.load()
+    assert isinstance(mgr.dense, BucketedDenseIndex)
+    np.testing.assert_allclose(
+        mgr.dense.search_scores(torch.from_numpy(q)).numpy(),
+        np.asarray(bk.search_scores(jnp.asarray(q))), rtol=1e-5, atol=1e-4)
     assert MeshConfig(index_dtype="auto").resolve_index_dtype(
         10, 128, device="cpu") == "int8"

@@ -29,6 +29,7 @@ from hybrid_rag_colbertv2_tpu.models.tokenizer import (
 from hybrid_rag_colbertv2_tpu.retrieval.cascade import (
     HybridRetriever as JaxRetriever)
 from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+from hybrid_rag_colbertv2_tpu_torch.index.bucketed import BucketedDenseIndex
 from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
 from hybrid_rag_colbertv2_tpu_torch.index.manager import IndexManager
 from hybrid_rag_colbertv2_tpu_torch.models import colbert as tc
@@ -172,9 +173,19 @@ def test_add_documents_rebuilds_when_corpus_shrinks(tmp_path):
     assert mgr.dense.n_docs == 10
     mgr.add_documents(corpus[:6])            # shrank: a rebuild
     assert mgr.dense.n_docs == 6 and mgr.lexical.n_docs == 6
+    # the stored index's layout decides an append (as in JAX), the
+    # config's a rebuild: a flat index grows flat, a shrink rebuilds
+    # bucketed (the bucketed layout is ported; this used to raise)
     mgr.config.mesh.index_layout = "bucketed"
-    with pytest.raises(NotImplementedError, match="bucketed"):
-        mgr.add_documents(corpus)
+    mgr.add_documents(corpus)
+    assert isinstance(mgr.dense, DenseTokenIndex)
+    assert mgr.dense.n_docs == 10
+    mgr.add_documents(corpus[:8])
+    assert isinstance(mgr.dense, BucketedDenseIndex)
+    assert mgr.dense.n_docs == 8 and mgr.lexical.n_docs == 8
+    mgr.add_documents(corpus)
+    assert isinstance(mgr.dense, BucketedDenseIndex)
+    assert mgr.dense.n_docs == 10
 
 
 def _flat(tree, prefix=""):
