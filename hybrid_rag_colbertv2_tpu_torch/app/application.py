@@ -9,8 +9,11 @@ serves from the other. The encoder comes from a local HF checkpoint
 directory (``encoder_checkpoint``: its ``tokenizer.json``,
 ``config.json`` and weights through ``models/convert.py``) or is
 self-contained (corpus BPE, preset geometry, trained on the corpus).
-Not ported yet, and raising where reached: serving sharded over several
-cards (``parallel/``; ROADMAP.md §1 item 8).
+With more than one visible device (``parallel/mesh.py::visible_devices``)
+retrieval shards the dense index over the mesh (``parallel/``), as the
+JAX app does; on the card only when asked (``use_mesh=True``) or when
+the index does not fit one card, because the sharded call is not yet
+captured as a CUDA graph.
 
 Equivalent of the reference ``RAGApplication``
 (local_rag_complete.py:1111-1238): DB setup, sidecar health check,
@@ -25,8 +28,9 @@ REPL, ``print_stats``. Differences:
     encoding matches index-time encoding across sessions;
   * Ollama is optional: indexing and retrieval never require the sidecar
     (the reference hard-gates indexing on the LLM being up, :1144);
-  * (JAX package) with >1 visible device, retrieval shards the dense
-    index over the mesh (parallel/); the port serves on one card.
+  * with >1 visible device, retrieval shards the dense index over the
+    mesh (parallel/): one process drives every shard. On the card the
+    default keeps one card's CUDA graph while the index fits it.
 """
 
 from __future__ import annotations
@@ -557,24 +561,73 @@ class RAGApplication:
                  "measured gate", mode, weight)
         return mode
 
+    def _index_fits_card(self) -> bool:
+        """Is the app's device a card that holds the dense index under
+        80% of its memory (``resolve_index_dtype``'s margin)?"""
+        if self.device.type != "cuda":
+            return False
+        _, total = torch.cuda.mem_get_info(self.device)
+        return self.indexes.dense.memory_bytes() < 0.8 * total
+
     def _bind_retriever(self, use_mesh: Optional[bool] = None) -> None:
         """Stand up retriever + chatbot over the CURRENT self.indexes
-        (no disk reload)."""
+        (no disk reload). ``use_mesh=None`` shards when more than one
+        device is visible, as JAX's app does, except on the card while
+        the dense index fits it: there one card replays the whole call
+        as one CUDA graph, where the sharded call runs eagerly at several
+        times the latency (PERF.md section 5). ``use_mesh=True`` shards
+        whenever several devices are visible. The mesh starts at the
+        app's device."""
+        from ..index.bucketed import BucketedDenseIndex
+        from ..parallel import mesh as pmesh
+
         if self.config.final_fusion == "auto":
             self.resolve_final_fusion()
 
-        n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
+        devices = pmesh.visible_devices(self.device)
+        n_dev = len(devices)
+        if use_mesh is None:
+            use_mesh = n_dev > 1 and not self._index_fits_card()
         if use_mesh and n_dev > 1:
-            raise NotImplementedError(
-                "serving sharded over several cards comes with the port of "
-                "parallel/ (ROADMAP.md section 1, item 8)")
-        if use_mesh is None and n_dev > 1:
-            log.info("%d cards visible: serving on %s alone (sharding "
-                     "comes with the port of parallel/)", n_dev, self.device)
-        self.retriever = HybridRetriever(
-            self.config, self.indexes, self.encoder,
-            chunk_store=self.store, device=self.device)
+            # the mesh's lead device holds the queries and the merge: the
+            # device the indexes and the encoder already live on
+            if self.device in devices:
+                i = devices.index(self.device)
+                devices = devices[i:] + devices[:i]
+            mesh = pmesh.make_mesh(self.config.mesh, devices=devices)
+            n_shards = mesh.shape[self.config.mesh.axis_names[0]]
+            dense = self.indexes.dense
+            subs = (dense.buckets if isinstance(dense, BucketedDenseIndex)
+                    else [dense])
+            if any(b.n_pad % n_shards for b in subs):
+                # index builders pad docs to multiples of 128, which
+                # divides any power-of-two shard count <= 128 — but a
+                # non-power-of-two mesh (e.g. 6 devices) would fail the
+                # sharders; serve single-device instead of failing
+                log.warning(
+                    "index padding not divisible by %d shards; "
+                    "falling back to single-device retrieval", n_shards)
+                use_mesh = False
+        if use_mesh and n_dev > 1:
+            from ..parallel.sharded import (ShardedBucketedRetriever,
+                                            ShardedRetriever)
+            if isinstance(dense, BucketedDenseIndex):
+                sharded = ShardedBucketedRetriever(
+                    self.config, mesh, self.indexes.lexical,
+                    pmesh.shard_bucketed_index(dense, mesh), self.encoder,
+                    chunk_store=self.store)
+            else:
+                sharded = ShardedRetriever(
+                    self.config, mesh, self.indexes.lexical,
+                    pmesh.shard_dense_index(dense, mesh), self.encoder,
+                    chunk_store=self.store)
+            self.retriever = _ShardedAdapter(sharded, self.store,
+                                             self.config)
+            log.info("Sharded retriever over %s mesh", mesh.shape)
+        else:
+            self.retriever = HybridRetriever(
+                self.config, self.indexes, self.encoder,
+                chunk_store=self.store, device=self.device)
         history = (self.chatbot.conversation_history
                    if self.chatbot is not None else [])
         self.chatbot = RAGChatbot(self.config, self.retriever, self.ollama)
@@ -691,3 +744,33 @@ class RAGApplication:
         print(f"   * Indexes built: {s['indexes_built']}")
         print(f"   * Devices: {', '.join(s['devices'])}")
 
+
+class _ShardedAdapter:
+    """Gives ShardedRetriever the single-query retrieve() surface."""
+
+    def __init__(self, sharded, store, config):
+        self._r = sharded
+        self._store = store
+        self._cfg = config
+
+    def retrieve(self, query: str, top_k: Optional[int] = None) -> List[Dict]:
+        ids, scores = self._r.retrieve_batch([query], top_k)
+        out = []
+        rows = self._store.get_chunks([int(i) for i in ids[0] if i >= 0])
+        by_id = {r["chunk_id"]: r for r in rows}
+        rank = 0
+        for cid, score in zip(ids[0], scores[0]):
+            if cid < 0:
+                continue
+            rank += 1
+            row = dict(by_id.get(int(cid), {"chunk_id": int(cid)}))
+            row.update(score=float(score), rank=rank)
+            out.append(row)
+        return out
+
+    def retrieve_batch(self, queries, top_k=None):
+        return self._r.retrieve_batch(queries, top_k)
+
+    @property
+    def last_timings(self) -> Dict:
+        return getattr(self._r, "last_timings", {})

@@ -78,7 +78,10 @@ class MeshConfig:
         lengths) fits under 80% of the card's total memory per shard
         (``torch.cuda.mem_get_info``; the same margin as the JAX
         package's ``utils/profiling.py::index_capacity_estimate``), else
-        the nibble-packed "int4-doc" (half the bytes). A CPU ``device``
+        the nibble-packed "int4-doc" (half the bytes). The shards are
+        the DOC-axis extent of the mesh the app will serve on, as in
+        JAX: ``dp`` of ``resolved_mesh_shape`` over the visible cards
+        (``parallel/mesh.py::visible_devices``). A CPU ``device``
         resolves to "int8" so behavior is deterministic in tests.
         Concrete dtypes pass through unchanged.
         """
@@ -89,7 +92,13 @@ class MeshConfig:
         device = torch.device("cuda" if device is None else device)
         if device.type != "cuda":
             return "int8"
-        n_devices = max(1, n_devices or 1)
+        if n_devices is None:
+            from .parallel import mesh as _mesh
+
+            # one shard where no card is visible to count
+            cards = (_mesh.visible_devices(device)
+                     if torch.cuda.is_available() else [device])
+            n_devices = max(1, self.resolved_mesh_shape(len(cards))[0])
         n = max(n_docs, 1)
         total = n * doc_len * dim + n * doc_len * 4 + n * 4
         _, limit = torch.cuda.mem_get_info(device)

@@ -285,12 +285,65 @@ def test_unported_parts_raise(tmp_path, monkeypatch):
     app = RAGApplication(cfg, use_ollama=False, device="cpu")
     with pytest.raises(FileNotFoundError, match="tokenizer.json"):
         app._make_encoder(["some text"])
-    # sharded serving on several cards waits for parallel/
+    # sharded serving is ported (parallel/): on a CUDA device without a
+    # card the mesh's device query raises, as every entry point does
     app.config.final_fusion = "rrf"
     app.device = torch.device("cuda", 0)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         app._bind_retriever(use_mesh=True)
+
+
+def test_sharded_app_equals_jax_sharded_app(world, tmp_path, monkeypatch):
+    """With 8 visible devices (``[cpu] * 8``) the port's app binds the
+    sharded adapter, as JAX's does over the conftest's 8 devices, and
+    ``query_batch`` returns the JAX sharded app's rows."""
+    from hybrid_rag_colbertv2_tpu_torch.app.application import (
+        _ShardedAdapter)
+    from hybrid_rag_colbertv2_tpu_torch.parallel import mesh as pmesh
+    from hybrid_rag_colbertv2_tpu_torch.parallel.sharded import (
+        ShardedRetriever)
+    root, _, japp, _ = world
+    pinned = dict(final_fusion=japp.config.final_fusion,
+                  fusion_weight_bm25=japp.config.fusion_weight_bm25)
+    jroot = _copy(root, tmp_path / "jax")
+    jsh = JaxApp(JaxConfig(**_kw(jroot, **pinned)), use_ollama=False)
+    jsh.initialize_chatbot()
+    assert type(jsh.retriever).__name__ == "_ShardedAdapter"
+    want = jsh.query_batch(QUERIES)
+    monkeypatch.setattr(pmesh, "visible_devices",
+                        lambda device=None: [torch.device("cpu")] * 8)
+    proot = _copy(root, tmp_path / "port")
+    app = RAGApplication(RAGConfig(**_kw(proot, **pinned)),
+                         use_ollama=False, device="cpu")
+    app.initialize_chatbot()
+    assert isinstance(app.retriever, _ShardedAdapter)
+    assert isinstance(app.retriever._r, ShardedRetriever)
+    assert app.retriever._r.mesh.shape == {"data": 8, "model": 1}
+    _same_rows(app.query_batch(QUERIES), want)
+    single = app.query(QUERIES[0])
+    assert [r["chunk_id"] for r in single] == _ids(want)[0]
+    assert set(app.stats()["last_query_timings"]) == {"tokenize", "cascade"}
+
+
+def test_default_mesh_keeps_one_card_while_the_index_fits(world, tmp_path,
+                                                          monkeypatch):
+    """``use_mesh=None`` on the card keeps the single-device CUDA graph
+    while the dense index fits under 80% of the card's memory, and
+    shards once it does not; on the CPU it shards whenever several
+    devices are visible (JAX's rule)."""
+    root, _, japp, _ = world
+    pinned = dict(final_fusion=japp.config.final_fusion,
+                  fusion_weight_bm25=japp.config.fusion_weight_bm25)
+    app = RAGApplication(RAGConfig(**_kw(_copy(root, tmp_path), **pinned)),
+                         use_ollama=False, device="cpu")
+    app.initialize_chatbot(use_mesh=False)
+    assert not app._index_fits_card()
+    need = app.indexes.dense.memory_bytes()
+    app.device = torch.device("cuda", 0)
+    for total, fits in ((2 * need, True), (need, False)):
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda device=None, t=total: (0, t))
+        assert app._index_fits_card() is fits
 
 
 def _run_cli(main, argv):

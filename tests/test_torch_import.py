@@ -28,7 +28,10 @@ def test_port_imports_no_jax():
     assert {f"{PORT}.app.application", f"{PORT}.app.cli",
             f"{PORT}.app.server", f"{PORT}.train.trainer",
             f"{PORT}.retrieval.gate", f"{PORT}.ingest.pdf",
-            f"{PORT}.models.convert", f"{PORT}.index.bucketed"} <= set(mods)
+            f"{PORT}.models.convert", f"{PORT}.index.bucketed",
+            f"{PORT}.parallel", f"{PORT}.parallel.mesh",
+            f"{PORT}.parallel.sharded", f"{PORT}.parallel.distributed",
+            f"{PORT}.index.checkpoint"} <= set(mods)
     # neither JAX nor what the card's machine lacks (requests, PyMuPDF,
     # safetensors) nor the JAX trainer's optimizer and checkpoint
     # libraries
@@ -87,6 +90,19 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch, tmp_path):
                                    device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="no CUDA device"):
         HybridRetriever(cfg, mgr, enc)
+    # the mesh spans the cards unless given devices; a checkpoint loads
+    # onto the card unless asked for the CPU
+    from hybrid_rag_colbertv2_tpu_torch.index.checkpoint import (
+        load_sharded, save_sharded)
+    from hybrid_rag_colbertv2_tpu_torch.parallel.mesh import make_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert make_mesh(devices=[torch.device("cpu")] * 2).shape == {
+        "data": 2, "model": 1}
+    save_sharded(mgr.dense, tmp_path / "ck")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_sharded(tmp_path / "ck")
+    assert load_sharded(tmp_path / "ck", device="cpu").device.type == "cpu"
     ids, _ = HybridRetriever(cfg, mgr, enc, device="cpu").retrieve_batch(
         ["beta gamma"], 2)
     assert ids.shape == (1, 2)
