@@ -7,6 +7,8 @@
     python3 chip_smoke.py --bucketed-only # build + the checkpoint and
                                           # bucketed phases, then stop
     python3 chip_smoke.py --sharded-only  # build + the sharded phases
+    python3 chip_smoke.py --train-sharded-only  # build + sharded training
+    python3 chip_smoke.py --tools-only    # build + the app phase + the tools
     python3 chip_smoke.py --variant KERNEL:NAME=DIR ...  # + time other builds
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
@@ -101,6 +103,23 @@ card (a mesh of ``[card] * 4``; the shards are views of the index):
     against the single-device bucketed route 0;
   * the app with ``visible_devices`` patched to 4 devices: it binds the
     sharded adapter, and its ids equal the unsharded app's.
+
+Then the rest of the port, on the same card:
+
+  * the tools (after the app phase, on its app): ``check_env`` (the five
+    kernel probes against their plain versions), ``eval_recall`` (card
+    vs CPU, and the CLI's ``--eval`` in a subprocess), the organic
+    questions over the repo's markdown, ``stage_probe`` at 100,000 docs
+    with a profile and ``--flagship``, ``serve_probe`` at concurrency
+    1/4/8 and ``--chat`` with its mock sidecar, and the native text
+    library timed against the Python path on the app's corpus;
+  * the training side of sharding: the tiny ``__graft_entry__`` flow on
+    a (4, 2) mesh of the card (TP-sharded encoder, 3 DP x TP steps,
+    sharded retrieval over int8 and int4-doc) held against the same flow
+    on the CPU; at jina-colbert-v2 width on the synthetic checkpoint the
+    TP forward at model extents 2 and 4 against the unsharded one, and
+    3 DP x TP steps on a (2, 2) mesh against 3 unsharded steps, both
+    timed.
 
 Copies between cards are not exercised: the machine has one card.
 
@@ -1290,6 +1309,16 @@ def main() -> int:
         print(json.dumps({"sharded": sharded, "card": card}))
         log("sharded-only: stopping after the sharded phase")
         return 0
+    if "--train-sharded-only" in sys.argv[1:]:
+        train = phase_train_sharded(device)
+        print(json.dumps({"train_sharded": train, "card": card}))
+        log("train-sharded-only: stopping after the sharded training phase")
+        return 0
+    if "--tools-only" in sys.argv[1:]:
+        app = phase_app(device, then=lambda a, r: phase_tools(device, a, r))
+        print(json.dumps({"tools": app.pop("then"), "card": card}))
+        log("tools-only: stopping after the app and the tools phases")
+        return 0
 
     # -- phase 2: each kernel vs its plain version at small shapes ------
     stamp("kernels at small shapes")
@@ -1301,9 +1330,11 @@ def main() -> int:
         log("kernels-only: stopping after the kernel checks")
         return 0
 
-    # -- the app's default path (its own counted run) ---------------------
-    stamp("the app's default path")
-    app = phase_app(device)
+    # -- the app's default path (its own counted run), then the tools on
+    # -- its app (their own counted run) ---------------------------------
+    stamp("the app's default path, then the tools")
+    app = phase_app(device, then=lambda a, r: phase_tools(device, a, r))
+    tools = app.pop("then")
 
     # -- phase 3: the main path of every layout, both routes -------------
     from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import FusedCascade
@@ -1411,6 +1442,8 @@ def main() -> int:
     sharded["bucketed"] = bucketed.pop("sharded")
     stamp("the app sharded")
     sharded["app"] = phase_sharded_app(device)
+    stamp("the training side of sharding")
+    train_sharded = phase_train_sharded(device)
     stamp("whole run")
     rows = [{"name": kernel, "route": "cuda",
              "source": f"{PORT}/csrc/{src}",
@@ -1431,11 +1464,20 @@ def main() -> int:
              "sharded_bucketed_launches_per_call":
                  sharded["bucketed"]["0"]["kernel_per_call"]
                  if kernel == "maxsim_int8" else 0,
+             # the tools phase's count of the kernel's wrapper (the bf16
+             # and fp32 kernels share maxsim_scores), and the sharded
+             # training flow's route-0 retrieval
+             "tools_launches": tools["launches"][KERNELS[kernel][1]],
+             "train_sharded_launches": sum(
+                 n for k, n in train_sharded["graft"]["launches"].items()
+                 if k.startswith(layout + "/")),
              **nums[kernel]}
             for kernel, (layout, _, _, src, line) in KERNELS.items()]
     print(json.dumps({"app": app, "card": card}))
     print(json.dumps({"bucketed": bucketed, "card": card}))
     print(json.dumps({"sharded": sharded, "card": card}))
+    print(json.dumps({"tools": tools, "card": card}))
+    print(json.dumps({"train_sharded": train_sharded, "card": card}))
     print(json.dumps({"retrieve_batch_ms": lat, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1577,6 +1619,7 @@ def app_upload(root: Path, docs) -> tuple:
         DocumentProcessor)
     from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
         ColBERTTokenizer)
+    from hybrid_rag_colbertv2_tpu_torch.train import data as data_mod
     from hybrid_rag_colbertv2_tpu_torch.train import trainer as trainer_mod
     app = RAGApplication(app_config(root), use_ollama=False)
     probe = StepProbe()
@@ -1595,6 +1638,11 @@ def app_upload(root: Path, docs) -> tuple:
                 "bpe": (ColBERTTokenizer, "train_bpe"),
                 "encoder_init": (RAGApplication, "_make_encoder"),
                 "train_total": (RAGApplication, "_train_encoder"),
+                # the host pairs + mining, split by function
+                "pairs": (data_mod, "pseudo_query_pairs"),
+                "reworded": (data_mod, "reworded_query_pairs"),
+                "mining": (data_mod, "mine_hard_negatives"),
+                "trainer_init": (trainer_mod.ColBERTTrainer, "__init__"),
                 "train_steps": (trainer_mod.ColBERTTrainer, "train")}) as t:
             t0 = time.perf_counter()
             out = app.index_documents([str(p) for p in docs])
@@ -1610,6 +1658,9 @@ def app_upload(root: Path, docs) -> tuple:
              "encoder_init_s": t.total["encoder_init"] - t.total["bpe"],
              "pairs_and_mining_s": (t.total["train_total"]
                                     - t.total["train_steps"]),
+             "pairs_s": t.total["pairs"], "reworded_s": t.total["reworded"],
+             "mining_s": t.total["mining"],
+             "trainer_init_s": t.total["trainer_init"],
              "train_steps_s": t.total["train_steps"],
              **{f"index_{k}_s": v for k, v in out["timings"].items()}}
     steps = probe.numbers()
@@ -1928,12 +1979,13 @@ def app_cli_and_server(app, root: Path, docs, query: str) -> dict:
     return {"cli_upload_s": up_s, "cli_query_s": q_s}
 
 
-def phase_app(device) -> dict:
+def phase_app(device, then=None) -> dict:
     """The app's default path on the card, as a user runs it: upload the
     JAX bench's app-path corpus (ingest, BPE, pairs and mining, 300
     training steps, index build), then query (reload, the gate, serving),
     both dense routes; the trainer and the gate held against the CPU; the
-    CLI and the server. -> the phase's numbers"""
+    CLI and the server. ``then(app, root)``, if given, runs last, on the
+    app and its directory (the tools phase). -> the phase's numbers"""
     import tempfile
     import torch
     from hybrid_rag_colbertv2_tpu_torch.app.application import (
@@ -2066,7 +2118,10 @@ def phase_app(device) -> dict:
         app_graph_after_training(root, corpus, device)
         gate_cmp = app_gate_card_vs_cpu(app, corpus)
         cli = app_cli_and_server(app, root, docs, batches[0][0])
-        del exact_app, app
+        del exact_app
+        gc.collect()
+        after = then(app, root) if then is not None else None
+        del app
         gc.collect()
     return {"chunks": out["total_chunks"], "upload": parts,
             "train": steps, "loss_first": metrics[0]["loss"],
@@ -2074,7 +2129,8 @@ def phase_app(device) -> dict:
             "gate": {k: v for k, v in seen.items()}, "verdict": verdict,
             "bind_s": bind_s, "route_1024": pruned, "route_0": exact,
             "app_launches": counts, "train_card_vs_cpu": train_cmp,
-            "gate_card_vs_cpu": gate_cmp, **cli}
+            "gate_card_vs_cpu": gate_cmp, **cli,
+            **({"then": after} if then is not None else {})}
 
 
 # runtime calls that put work on the device: kernel and graph launches
@@ -3517,6 +3573,582 @@ def phase_sharded(device) -> dict:
     return out
 
 
+# -- the training side of sharding (parallel/params.py, the trainer's mesh) --
+
+# __graft_entry__.py's full training step: its corpus and its encoder (two
+# layers of the `small` preset: rope), on a (data=4, model=2) mesh
+GRAFT_MESH = (4, 2)
+GRAFT_DOCS = 64
+# the jina-width checks: TP forward over model extents 2 and 4, DP x TP
+# steps on (data=2, model=2) against the unsharded trainer, same card
+JINA_TP_EXTENTS = (2, 4)
+JINA_TRAIN_MESH = (2, 2)
+JINA_TRAIN_BATCH, JINA_TRAIN_DOC_LEN = 8, 128
+N_TRAIN_COMPARED, N_TRAIN_TIMED = 3, 8
+# TP forward vs unsharded (fp32, TF32 off; partial products summed in
+# another order); the steps as the CPU tests hold them (losses rtol,
+# parameters atol; attention key biases by the schedule, see
+# tests/test_torch_train.py). The first step's gradients (of equal
+# parameters: its update is zero) within GRAD_RTOL of each tensor's
+# largest. At jina width Adam also turns the rounding noise of a few
+# single elements' near-zero gradients into steps of up to the learning
+# rate (4 of 558,445,568 elements past 1e-5 on the first H100 run, their
+# first gradients ~1e-3 of their tensor's median): at most
+# NOISE_ELEMENTS of the elements may pass the atol, each within the
+# schedule's bound.
+TP_ATOL = 1e-4
+SHARDED_TRAIN_RTOL_LOSS, SHARDED_TRAIN_ATOL_PARAM = 1e-4, 1e-5
+GRAD_RTOL = 1e-4
+NOISE_ELEMENTS = 1e-7
+
+
+def card_mesh(device, shape):
+    from hybrid_rag_colbertv2_tpu_torch.config import MeshConfig
+    from hybrid_rag_colbertv2_tpu_torch.parallel.mesh import make_mesh
+    return make_mesh(MeshConfig(mesh_shape=shape),
+                     devices=[device] * (shape[0] * shape[1]))
+
+
+def graft_flow(device, count: bool) -> dict:
+    """__graft_entry__.py:174-225 on ``device``: TP-shard the encoder over
+    a GRAFT_MESH mesh of it, 3 DP x TP steps (warmup 1: the first update
+    is zero), then ``ShardedRetriever`` with the same encoder over int8
+    and int4-doc, with and without ``shard_bm25``, on the pruned route
+    (JAX's ``dense_prefilter=8``) and route 0 (the layout's kernel in
+    every shard; with ``count``, the wrapper counts set to 0 just before
+    each call and read just after). -> losses, results, launches"""
+    import numpy as np
+    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.index.dense import DenseTokenIndex
+    from hybrid_rag_colbertv2_tpu_torch.index.lexical import LexicalIndex
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import (
+        ColBERTConfig, ColBERTEncoder)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
+        ColBERTTokenizer)
+    from hybrid_rag_colbertv2_tpu_torch.parallel.mesh import (
+        shard_dense_index)
+    from hybrid_rag_colbertv2_tpu_torch.parallel.params import (
+        shard_encoder_params)
+    from hybrid_rag_colbertv2_tpu_torch.parallel.sharded import (
+        ShardedRetriever)
+    from hybrid_rag_colbertv2_tpu_torch.train.data import pseudo_query_pairs
+    from hybrid_rag_colbertv2_tpu_torch.train.trainer import (
+        ColBERTTrainer, TrainConfig)
+    corpus = [f"sample document {i} about topic {i % 7}"
+              for i in range(GRAFT_DOCS)]
+    tok = ColBERTTokenizer.train_bpe(corpus, vocab_size=512)
+    enc = ColBERTEncoder(ColBERTConfig.small(
+        vocab_size=tok.vocab_size, num_layers=2, hidden_size=128,
+        intermediate_size=256, num_heads=4), tok, seed=0, device=device)
+    mesh = card_mesh(device, GRAFT_MESH)
+    shard_encoder_params(enc.model, mesh)
+    pairs = [(q, corpus[i]) for q, i in
+             pseudo_query_pairs(corpus, n_pairs_per_doc=1, seed=0)]
+    metrics = ColBERTTrainer(enc, TrainConfig(
+        batch_size=2 * GRAFT_MESH[0], doc_len=32, steps=3, warmup_steps=1,
+        learning_rate=1e-3), mesh=mesh).train(pairs)
+    lex = LexicalIndex.build(corpus)
+    embs, lengths = enc.encode_docs(corpus, doc_len=32)
+    out, launches = {}, {}
+    queries = ["sample topic 3", "document 5"]
+    for dtype in ("int8", "int4-doc"):
+        dense = shard_dense_index(DenseTokenIndex.build(
+            embs, lengths, doc_len=32, dtype=dtype, docs_pad_multiple=128),
+            mesh)
+        wrapper = KERNELS[LAYOUT_KERNEL[dtype]][1]
+        for sb in (False, True):
+            for p in (8, 0):
+                cfg = RAGConfig(final_top_k=5, fusion_candidates=8,
+                                dense_prefilter=p)
+                cfg.mesh.shard_bm25 = sb
+                r = ShardedRetriever(cfg, mesh, lex, dense, enc)
+                key = f"{dtype}/bm25_sharded={sb}/prefilter={p}"
+                if count:
+                    # route 0: the kernel once per data shard
+                    (ids, scores), n = sharded_call_counted(
+                        key, r, queries, wrapper,
+                        GRAFT_MESH[0] if p == 0 else 0)
+                    launches[key] = n
+                else:
+                    ids, scores = r.retrieve_batch(queries)
+                if not ((ids >= 0).all() and np.isfinite(scores).all()):
+                    raise AssertionError(f"graft flow {key}: {ids}")
+                out[key] = (ids, scores)
+    return {"losses": [m["loss"] for m in metrics], "results": out,
+            "launches": launches}
+
+
+def jina_checkpoint_dir(device) -> Path:
+    """The synthetic jina-colbert-v2 checkpoint, written if absent."""
+    ckpt = REPO / "build" / "jina_ckpt"
+    if not (ckpt / "model.safetensors").exists():
+        write_jina_checkpoint(ckpt, device)
+    return ckpt
+
+
+def step_numbers(label, trainer, batches) -> dict:
+    """N_TRAIN_TIMED steps of ``trainer`` timed by CUDA events (p50), the
+    step's peak memory above what was allocated before it, and host-side
+    launches per step from torch.profiler over 2 more steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    ts = []
+    for i in range(N_TRAIN_TIMED):
+        b = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        trainer.step_fn(b, trainer.updates)
+        e1.record()
+        trainer.updates += 1
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1))
+        peak = torch.cuda.max_memory_allocated() - base
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[:2]:
+            trainer.step_fn(b, trainer.updates)
+            trainer.updates += 1
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    host = sum(e.count for e in ev if e.device_type != cuda
+               and e.key in LAUNCH_CALLS) / 2
+    device_ms = sum(e.self_device_time_total for e in ev
+                    if e.device_type == cuda) / 1e3 / 2
+    out = {"step_ms_p50": statistics.median(ts), "step_ms_min": min(ts),
+           "step_peak_bytes": peak, "host_launches_per_step": host,
+           "device_ms_per_step": device_ms,
+           "allocated_bytes": torch.cuda.memory_allocated()}
+    log(f"{label}: step p50 {out['step_ms_p50']:.3f} ms (CUDA events, "
+        f"{N_TRAIN_TIMED} steps), device {device_ms:.3f} ms/step, "
+        f"{host:.0f} host-side launches/step, step peak "
+        f"{peak / 2**30:.2f} GiB above {base / 2**30:.2f} GiB allocated")
+    return out
+
+
+def jina_train_sharded(device) -> dict:
+    """At jina-colbert-v2 width, on the synthetic checkpoint: the TP
+    forward at model extents JINA_TP_EXTENTS against the unsharded
+    forward (within TP_ATOL, queries and docs), then N_TRAIN_COMPARED
+    DP x TP steps on a JINA_TRAIN_MESH mesh of the card against as many
+    unsharded steps from the same weights (losses within
+    SHARDED_TRAIN_RTOL_LOSS, every parameter within
+    SHARDED_TRAIN_ATOL_PARAM but the key biases), then both timed."""
+    import numpy as np
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.models.colbert import ColBERTEncoder
+    from hybrid_rag_colbertv2_tpu_torch.models.convert import (
+        colbert_config_from_hf, convert_hf_dir)
+    from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import (
+        ColBERTTokenizer)
+    from hybrid_rag_colbertv2_tpu_torch.parallel.params import (
+        shard_encoder_params)
+    from hybrid_rag_colbertv2_tpu_torch.train.data import pseudo_query_pairs
+    from hybrid_rag_colbertv2_tpu_torch.train.trainer import (
+        ColBERTTrainer, TrainConfig)
+    ckpt = jina_checkpoint_dir(device)
+    cfg = colbert_config_from_hf(str(ckpt), query_max_tokens=LQ,
+                                 doc_max_tokens=JINA_TRAIN_DOC_LEN)
+    params = convert_hf_dir(str(ckpt), cfg)
+    tok = ColBERTTokenizer.load(ckpt / "tokenizer.json")
+    plain = ColBERTEncoder(cfg, tok, params=params, device=device)
+    texts = app_corpus_texts(ckpt.parent / "tok")
+    queries = [" ".join(t.split()[3:11]) for t in texts[:BATCH]]
+    docs = texts[BATCH:BATCH + 16]
+    ref_q = plain.encode_queries(queries)
+    ref_d, _ = plain.encode_docs(docs, doc_len=JINA_TRAIN_DOC_LEN)
+    q_ids = torch.as_tensor(np.stack([tok.encode_query(q, LQ)
+                                      for q in queries]), device=device)
+
+    def fwd_ms():
+        with torch.inference_mode():
+            return cuda_ms(lambda: plain.model(q_ids, torch.ones_like(q_ids)),
+                           10)
+    out = {"tp_forward": {"unsharded_query_ms": fwd_ms()}}
+    for n in JINA_TP_EXTENTS:
+        shard_encoder_params(plain.model, card_mesh(device, (1, n)))
+        try:
+            got_q = plain.encode_queries(queries)
+            got_d, _ = plain.encode_docs(docs, doc_len=JINA_TRAIN_DOC_LEN)
+            ms = fwd_ms()
+        finally:
+            plain.model.tp_plan = None
+        err = max(float((got_q - ref_q).abs().max()),
+                  float((got_d - ref_d).abs().max()))
+        out["tp_forward"][f"model_{n}"] = {"max_abs_err": err,
+                                           "query_ms": ms}
+        log(f"jina TP forward, model extent {n}: max |diff| vs unsharded "
+            f"{err:.3e} (limit {TP_ATOL:g}; 8 queries, 16 docs x "
+            f"{JINA_TRAIN_DOC_LEN}); query forward {ms:.3f} ms against "
+            f"{out['tp_forward']['unsharded_query_ms']:.3f} unsharded "
+            f"(CUDA events)")
+        if err > TP_ATOL:
+            raise AssertionError(f"jina TP forward at {n}: {err}")
+    del ref_q, ref_d
+
+    sharded = ColBERTEncoder(cfg, tok, params=params, device=device)
+    del params
+    mesh = card_mesh(device, JINA_TRAIN_MESH)
+    shard_encoder_params(sharded.model, mesh)
+    kw = dict(batch_size=JINA_TRAIN_BATCH, doc_len=JINA_TRAIN_DOC_LEN,
+              steps=100, warmup_steps=1)
+    t_plain = ColBERTTrainer(plain, TrainConfig(**kw))
+    t_tp = ColBERTTrainer(sharded, TrainConfig(**kw), mesh=mesh)
+    pairs = [(q, texts[i]) for q, i in
+             pseudo_query_pairs(texts, n_pairs_per_doc=1, seed=0)]
+    groups = [pairs[i:i + JINA_TRAIN_BATCH] for i in
+              range(0, JINA_TRAIN_BATCH * (N_TRAIN_COMPARED + 2),
+                    JINA_TRAIN_BATCH)]
+    losses = []
+    grad_err, g0 = {}, {}
+    for s in range(N_TRAIN_COMPARED):
+        a = t_tp.step_fn(t_tp._make_batch(groups[s]), t_tp.updates)
+        b = t_plain.step_fn(t_plain._make_batch(groups[s]), t_plain.updates)
+        t_tp.updates += 1
+        t_plain.updates += 1
+        losses.append((float(a["loss"]), float(b["loss"])))
+        if not np.isclose(*losses[-1], rtol=SHARDED_TRAIN_RTOL_LOSS,
+                          atol=0.0):
+            raise AssertionError(f"jina DP x TP step {s} loss {losses[-1]}")
+        if s == 0:
+            # the first update is zero: both gradients are of equal
+            # parameters, the TP backward against the plain one
+            for (name, p), q in zip(sharded.model.named_parameters(),
+                                    plain.model.parameters()):
+                scale = float(q.grad.abs().max())
+                grad_err[name] = (float((p.grad - q.grad).abs().max())
+                                  / max(scale, 1e-30))
+                g0[name] = q.grad.detach().abs().clone()
+    moved = sum(2 * t_plain.schedule(s) * (1 + 2 * t_plain.cfg.weight_decay)
+                for s in range(N_TRAIN_COMPARED))
+    worst, worst_key_bias, over = 0.0, 0.0, []
+    for (name, p), q in zip(sharded.model.named_parameters(),
+                            plain.model.parameters()):
+        diff = (p.detach() - q.detach()).abs()
+        d = float(diff.max())
+        if name.endswith("attention.key.bias"):
+            worst_key_bias = max(worst_key_bias, d)
+            continue
+        worst = max(worst, d)
+        bad = diff > SHARDED_TRAIN_ATOL_PARAM
+        if bad.any():
+            g = g0[name]
+            over.append((d, name, int(bad.sum()), diff.numel(),
+                         float(g[bad].median()), float(g.median()),
+                         float(g.max()), grad_err[name]))
+    over.sort(reverse=True)
+    worst_grad = max((v, k) for k, v in grad_err.items()
+                     if not k.endswith("attention.key.bias"))
+    n_elems = sum(p.numel() for p in plain.model.parameters())
+    n_over = sum(o[2] for o in over)
+    log(f"jina DP x TP step 0 gradients vs unsharded: worst max |diff| / "
+        f"max |grad| {worst_grad[0]:.3e} ({worst_grad[1]}); parameters "
+        f"over {SHARDED_TRAIN_ATOL_PARAM:g} after {N_TRAIN_COMPARED} steps "
+        f"in {len(over)} tensors, {n_over} of {n_elems} elements; worst "
+        "(max diff, name, over, size, median |g0| over, median |g0|, "
+        f"max |g0|, grad rel err): {over[:8]}")
+    if worst_grad[0] > GRAD_RTOL:
+        raise AssertionError(f"jina DP x TP gradients: {worst_grad}")
+    if (n_over > NOISE_ELEMENTS * n_elems or max(worst, worst_key_bias)
+            > moved):
+        raise AssertionError(f"jina DP x TP parameters: {n_over} elements "
+                             f"over {SHARDED_TRAIN_ATOL_PARAM}, max |diff| "
+                             f"{worst} (key biases {worst_key_bias}), bound "
+                             f"{moved}")
+    log(f"jina DP x TP ({JINA_TRAIN_MESH[0]} x {JINA_TRAIN_MESH[1]} on the "
+        f"card) vs unsharded, {N_TRAIN_COMPARED} steps at batch "
+        f"{JINA_TRAIN_BATCH}, doc_len {JINA_TRAIN_DOC_LEN}: losses "
+        f"{[f'{a:.6f}/{b:.6f}' for a, b in losses]} (rtol "
+        f"{SHARDED_TRAIN_RTOL_LOSS:g}); step-0 gradients within "
+        f"{worst_grad[0]:.2e} of each tensor's largest (limit "
+        f"{GRAD_RTOL:g}); parameters within {SHARDED_TRAIN_ATOL_PARAM:g} "
+        f"but {n_over} elements (limit {NOISE_ELEMENTS * n_elems:.0f}), "
+        f"max |diff| {worst:.3e}, key biases {worst_key_bias:.3e} (bound "
+        f"{moved:.3e})")
+    timed = [t_plain._make_batch(g) for g in groups[:2]]
+    out["steps"] = {"losses": losses, "max_param_diff": worst,
+                    "elements_over_atol": n_over, "elements": n_elems,
+                    "max_grad_rel_err": worst_grad[0],
+                    "max_key_bias_diff": worst_key_bias,
+                    "key_bias_bound": moved,
+                    "unsharded": step_numbers("jina unsharded step", t_plain,
+                                              timed),
+                    "dp_tp": step_numbers(
+                        f"jina DP x TP step ({JINA_TRAIN_MESH[0]} x "
+                        f"{JINA_TRAIN_MESH[1]})", t_tp, timed)}
+    return out
+
+
+def phase_train_sharded(device) -> dict:
+    """The training side of sharding on the card: the tiny __graft_entry__
+    flow (its retrieval counted, each kernel once per data shard on route
+    0) held against the same flow on the CPU, then the jina-width checks.
+    -> numbers"""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    card = graft_flow(device, count=True)
+    cpu = graft_flow(torch.device("cpu"), count=False)
+    if not np.allclose(card["losses"], cpu["losses"],
+                       rtol=SHARDED_TRAIN_RTOL_LOSS, atol=0.0):
+        raise AssertionError(f"graft flow losses card {card['losses']} vs "
+                             f"CPU {cpu['losses']}")
+    swaps = {k: tie_swaps(f"graft flow {k}", v, cpu["results"][k])
+             for k, v in card["results"].items()}
+    log(f"graft flow on a {GRAFT_MESH[0]} x {GRAFT_MESH[1]} mesh of the "
+        f"card: losses {[f'{x:.6f}' for x in card['losses']]} (CPU "
+        f"{[f'{x:.6f}' for x in cpu['losses']]}); sharded retrieval over "
+        f"{len(card['results'])} cases equal to the CPU's "
+        f"({sum(swaps.values())} tie swaps); route-0 launches "
+        f"{card['launches']}")
+    out = {"graft": {"losses": card["losses"], "cpu_losses": cpu["losses"],
+                     "tie_swaps": swaps, "launches": card["launches"]}}
+    del card, cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["jina"] = jina_train_sharded(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"train-sharded phase: {out['seconds']:.1f}s")
+    return out
+
+
+# -- the tools and utilities (tools/, utils/{timing,profiling,native}) -------
+
+# the repo's own markdown (the JAX bench's organic pass, bench.py:936-940)
+ORGANIC_DOCS = ("README.md", "SURVEY.md", "PARITY.md", "BASELINE.md",
+                "docs/architecture.md", "docs/performance.md",
+                "docs/scaling.md")
+EVAL_QUERIES = 32
+SERVE_LEVELS = "1,4,8"
+N_NATIVE_REPS = 3
+
+
+def run_main(label, main_fn, argv) -> list:
+    """A tool's ``main(argv)`` in this process, its stdout captured:
+    -> the JSON objects it printed, one per line."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main_fn(argv)
+    text = buf.getvalue()
+    if rc != 0:
+        raise AssertionError(f"{label} returned {rc}:\n{text[-3000:]}")
+    log(f"{label} ({time.perf_counter() - t0:.1f}s):\n"
+        + "\n".join(f"  {ln}" for ln in text.strip().splitlines()))
+    return [json.loads(ln) for ln in text.strip().splitlines()
+            if ln.startswith("{")]
+
+
+def tools_eval(app, root: Path) -> dict:
+    """``eval_recall.evaluate`` on the app phase's app (the exact leg is
+    route 0: its kernel), the same on the CPU over the same index (the
+    gate's verdict pinned), and the CLI's ``--eval`` in a subprocess on
+    the card, whose keys must be ``evaluate``'s."""
+    import copy
+    from hybrid_rag_colbertv2_tpu_torch.app.application import (
+        RAGApplication)
+    from hybrid_rag_colbertv2_tpu_torch.tools.eval_recall import evaluate
+    got = evaluate(app, n_queries=EVAL_QUERIES)
+    cpu_app = RAGApplication(copy.deepcopy(app.config), use_ollama=False,
+                             device="cpu")
+    cpu_app.initialize_chatbot(use_mesh=False)
+    cpu = evaluate(cpu_app, n_queries=EVAL_QUERIES, measure_latency=False)
+    del cpu_app
+    quality = [k for k in cpu if k.startswith(("hit@", "agreement@"))]
+    # one query's hit may move where card and CPU swap tied scores
+    off = {k: abs(got[k] - cpu[k]) for k in quality}
+    if any(v > 1.0 / EVAL_QUERIES + 1e-9 for v in off.values()):
+        raise AssertionError(f"eval_recall card {got} vs CPU {cpu}")
+    app.config.save(root / "eval.json")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"{PORT}.app.cli", "--config",
+                        str(root / "eval.json"), "--eval",
+                        str(EVAL_QUERIES), "--no-generate"], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    cli_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"CLI --eval failed: {r.stderr[-2000:]}")
+    cli = json.loads(r.stdout.strip().splitlines()[-1])
+    if {k: cli[k] for k in quality} != {k: got[k] for k in quality}:
+        raise AssertionError(f"CLI --eval {cli} vs evaluate {got}")
+    log(f"eval_recall on the app's {got['chunks']} chunks ({app.device}): "
+        f"{json.dumps(got)}; CPU {json.dumps(cpu)}; CLI --eval equal "
+        f"({cli_s:.1f}s, process start included)")
+    return {"card": got, "cpu": cpu, "cli_eval_s": cli_s}
+
+
+def tools_organic(device) -> dict:
+    """``organic_questions.evaluate_questions`` on an app over the repo's
+    markdown, the JAX bench's organic config (auto-train, the gate)."""
+    import tempfile
+    from hybrid_rag_colbertv2_tpu_torch.app.application import (
+        RAGApplication)
+    from hybrid_rag_colbertv2_tpu_torch.tools.organic_questions import (
+        evaluate_questions)
+    docs = [str(REPO / p) for p in ORGANIC_DOCS if (REPO / p).exists()]
+    with tempfile.TemporaryDirectory() as td:
+        root = Path(td)
+        t0 = time.perf_counter()
+        app = RAGApplication(app_config(root, doc_max_tokens=192),
+                             use_ollama=False, device=device)
+        app.index_documents(docs)
+        app.initialize_chatbot()
+        build_s = time.perf_counter() - t0
+        res = evaluate_questions(app)
+        if not res["n"] or not 0.0 <= res["hit10"] <= 1.0:
+            raise AssertionError(f"organic questions: {res}")
+        res.update(docs=len(docs), chunks=app.store.stats()["chunks"],
+                   build_s=build_s, verdict=[app.config.final_fusion,
+                                             app.config.fusion_weight_bm25])
+        del app
+    log(f"organic questions over {res['docs']} repo docs ({res['chunks']} "
+        f"chunks, built, trained and gated in {build_s:.1f}s): "
+        f"{json.dumps(res)}")
+    return res
+
+
+def tools_native(app) -> dict:
+    """The native text library against the Python path on the app's
+    corpus: tokenization, the lexical build, and the upload's host pairs +
+    mining (``_train_encoder`` with the steps left out), equal outputs,
+    the native path asserted in use, each timed (median of
+    N_NATIVE_REPS, pairs + mining once each)."""
+    import os
+    import numpy as np
+    from hybrid_rag_colbertv2_tpu_torch.index.lexical import LexicalIndex
+    from hybrid_rag_colbertv2_tpu_torch.index.textproc import tokenize_corpus
+    from hybrid_rag_colbertv2_tpu_torch.train import trainer as trainer_mod
+    from hybrid_rag_colbertv2_tpu_torch.utils import native
+    if native.get_lib() is None:
+        raise AssertionError("the native text library did not build")
+    corpus = app.store.all_chunk_texts()
+    used = []
+    real = native.build_postings_native, native.tokenize_corpus_native
+
+    def counted(fn):
+        def wrapped(*a, **k):
+            r = fn(*a, **k)
+            used.append(r is not None)
+            return r
+        return wrapped
+    native.build_postings_native = counted(real[0])
+    native.tokenize_corpus_native = counted(real[1])
+    real_train = trainer_mod.ColBERTTrainer.train
+    seen_pairs = {}
+
+    def no_steps(self, pairs, steps=None):
+        seen_pairs[mode] = pairs
+        return []
+    out, results = {}, {}
+    try:
+        trainer_mod.ColBERTTrainer.train = no_steps
+        for mode in ("native", "python", "native", "python", "native",
+                     "python"):
+            if mode == "python":
+                os.environ["HRAG_NO_NATIVE"] = "1"
+            else:
+                os.environ.pop("HRAG_NO_NATIVE", None)
+            used.clear()
+            t = {}
+            t0 = time.perf_counter()
+            toks = tokenize_corpus(corpus)
+            t["tokenize_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            lex = LexicalIndex.build(corpus)
+            t["lexical_build_s"] = time.perf_counter() - t0
+            if mode not in seen_pairs:
+                t0 = time.perf_counter()
+                app._train_encoder(corpus)
+                t["pairs_and_mining_s"] = time.perf_counter() - t0
+            if any(used) != (mode == "native") or (
+                    mode == "native" and not all(used)):
+                raise AssertionError(f"{mode} run: native calls {used}")
+            for k, v in t.items():
+                out.setdefault(mode, {}).setdefault(k, []).append(v)
+            results.setdefault(mode, (toks, lex))
+    finally:
+        os.environ.pop("HRAG_NO_NATIVE", None)
+        trainer_mod.ColBERTTrainer.train = real_train
+        native.build_postings_native, native.tokenize_corpus_native = real
+    (tn, ln), (tp, lp) = results["native"], results["python"]
+    if tn != tp or ln.vocab != lp.vocab or not all(
+            np.array_equal(getattr(ln, a), getattr(lp, a))
+            for a in ("indptr", "post_docs", "post_weights")):
+        raise AssertionError("native and Python lexical outputs differ")
+    if seen_pairs["native"] != seen_pairs["python"]:
+        raise AssertionError("native and Python training pairs differ")
+    med = {m: {k: statistics.median(v) for k, v in d.items()}
+           for m, d in out.items()}
+    log(f"native text library ({native.library_path().name}) vs Python on "
+        f"the app's {len(corpus)} chunks (host clock, median of "
+        f"{N_NATIVE_REPS}; pairs + mining once each): " + "; ".join(
+            f"{k} {med['native'][k]:.3f} s vs {med['python'][k]:.3f} s"
+            for k in med["native"]) + f"; {len(seen_pairs['native'])} "
+        "training pairs equal")
+    return {"chunks": len(corpus), **med}
+
+
+def phase_tools(device, app, root: Path) -> dict:
+    """The port's tools on the card, after the app phase (whose app and
+    directory they use): check_env (the five kernel probes against their
+    plain versions), eval_recall and the CLI's --eval, the organic
+    questions, stage_probe at N_DOCS (with a profile and 4,096 docs
+    encoded) and --flagship, serve_probe at
+    SERVE_LEVELS and --chat with the mock sidecar, and the native text
+    library timed against the Python path. The wrapper counts are set to
+    0 just before and read just after; every kernel must have run."""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.tools import (
+        check_env, serve_probe, stage_probe)
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    out = {}
+    run_main("check_env", check_env.main, [])
+    out["check_env_launches"] = launch_counts()
+    if any(out["check_env_launches"][w] < (2 if w == "maxsim_scores" else 1)
+           for w in WRAPPERS):
+        raise AssertionError(f"check_env launches "
+                             f"{out['check_env_launches']}")
+    out["eval"] = tools_eval(app, root)
+    out["native"] = tools_native(app)
+    out["stage_probe"] = run_main(
+        "stage_probe", stage_probe.main,
+        ["--n-docs", str(N_DOCS), "--encode-docs", "4096", "--profile",
+         str(REPO / "build" / "stage_probe_trace")])
+    out["stage_probe_flagship"] = run_main(
+        "stage_probe --flagship", stage_probe.main,
+        ["--flagship", "--iters", "8"])
+    out["serve"] = run_main(
+        "serve_probe", serve_probe.main,
+        ["--concurrency", SERVE_LEVELS, "--requests", "32", "--json"])[-1]
+    out["serve_chat"] = run_main(
+        "serve_probe --chat", serve_probe.main,
+        ["--n-docs", "16", "--concurrency", SERVE_LEVELS, "--requests", "4",
+         "--chat", "--gen-latency-ms", "100", "--json"])[-1]
+    out["launches"] = launch_counts()
+    if any(n == 0 for n in out["launches"].values()):
+        raise AssertionError(f"tools phase launches {out['launches']}")
+    for res in (out["serve"], out["serve_chat"]):
+        if any(lv["errors"] for lv in res["levels"]):
+            raise AssertionError(f"serve_probe errors: {res}")
+    trace = REPO / "build" / "stage_probe_trace" / "trace.json"
+    if not trace.stat().st_size:
+        raise AssertionError("stage_probe --profile wrote no trace")
+    torch.cuda.synchronize()
+    out["organic"] = tools_organic(device)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"tools phase: {out['seconds']:.1f}s; wrapper launches "
+        f"{out['launches']}")
+    return out
+
+
 if __name__ == "__main__":
     sys.exit(main())
-

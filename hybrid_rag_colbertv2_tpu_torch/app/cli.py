@@ -3,9 +3,10 @@ local_rag_complete.py:1245-1286) plus --query and --bench (SURVEY.md #14).
 
 Port of ``hybrid_rag_colbertv2_tpu/app/cli.py``: the same flags and
 outputs, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions). ``--eval`` and ``--bench`` wait for the port of the
-tools and the bench (ROADMAP.md section 1, item 9): until then they exit
-with an error and run nothing.
+PyTorch versions). ``--eval`` runs tools/eval_recall.py on the
+configured app. ``--bench`` waits for the port of the repository's
+``bench.py`` (ROADMAP.md section 1, item 9): until then it exits with an
+error and runs nothing.
 
 Run: ``python -m hybrid_rag_colbertv2_tpu_torch.app.cli --help``
 """
@@ -43,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the retrieval benchmark (not ported yet)")
     p.add_argument("--eval", type=int, default=None, metavar="N",
                    help="evaluate retrieval quality over the indexed corpus "
-                        "with N pseudo-queries (not ported yet)")
+                        "with N pseudo-queries (tools/eval_recall.py)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to run on (default cuda; cpu runs "
                         "the plain PyTorch versions of the kernels)")
@@ -174,10 +175,18 @@ def _main(argv=None) -> int:
             app.print_stats()
         return 0
 
-    if args.eval or args.bench:
-        print("error: --eval and --bench wait for the port of "
-              "tools/eval_recall.py and the bench (ROADMAP.md section 1, "
-              "item 9)", file=sys.stderr)
+    if args.eval:
+        # evaluate the ALREADY-configured app (a fresh eval_recall.main
+        # would rebuild from defaults and drop --db/--model overrides,
+        # silently evaluating the wrong database)
+        from ..tools.eval_recall import evaluate
+        app.initialize_chatbot(use_mesh=False)
+        print(json.dumps(evaluate(app, n_queries=args.eval)))
+        return 0
+
+    if args.bench:
+        print("error: --bench waits for the port of the repository's "
+              "bench.py (ROADMAP.md section 1, item 9)", file=sys.stderr)
         return 2
 
     build_parser().print_help()

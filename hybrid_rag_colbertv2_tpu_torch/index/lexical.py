@@ -1,9 +1,9 @@
 """Lexical (BM25) index: host-side build, device-side scoring arrays.
 
 Copy of ``hybrid_rag_colbertv2_tpu/index/lexical.py`` for the PyTorch
-port: numpy only, the same on-disk files byte for byte, and the
-pure-Python tokenizer path (index/textproc.py) in place of the JAX
-package's optional native one.
+port: numpy only, the same on-disk files byte for byte. The build takes
+the port's own native library (utils/native.py) when it builds, else the
+pure-Python tokenizer (index/textproc.py); the two are bit-identical.
 
 Replaces the reference's ``bm25s`` index (built in
 ``DualIndexer.build_bm25_index``, local_rag_complete.py:846-864; queried in
@@ -75,32 +75,46 @@ class LexicalIndex:
         least idf — otherwise dominate scan time at large corpus scale.
         This is the standard impact-ordered truncation; exact when every
         term's df <= cap."""
+        from ..utils.native import build_postings_native
+
         n = len(corpus)
-        # pure-Python tokenization only: the JAX package's optional C++
-        # fast path (utils/native.py) loads a library built for that
-        # package, and its output is bit-identical to this path anyway
-        all_toks = [tokenize_lexical(t, stemmer=stemmer) for t in corpus]
-        doc_lens_i = np.array([len(t) for t in all_toks], np.int64)
-        # vectorized vocab + postings: np.unique over all tokens, then
-        # over (term, doc) pairs — the pairs come out sorted by
-        # (term, doc), which IS the term-major CSR order
-        flat = np.array([t for toks in all_toks for t in toks],
-                        dtype=object)
-        if flat.size:
-            doc_of_tok = np.repeat(np.arange(n, dtype=np.int64),
-                                   doc_lens_i)
-            uniq, inv = np.unique(flat.astype(str), return_inverse=True)
-            vocab: Dict[str, int] = {t: i for i, t in enumerate(uniq)}
-            v = len(uniq)
-            pair_key = inv.astype(np.int64) * n + doc_of_tok
-            uk, tf = np.unique(pair_key, return_counts=True)
-            tids = (uk // n).astype(np.int64)
-            dids = (uk % n).astype(np.int64)
+        native = build_postings_native(list(corpus), stemmer=stemmer)
+        if native is not None:
+            # one-pass C++ tokenize + (term, doc, tf) aggregation — the
+            # string-heavy half of the build; the numeric half below is
+            # shared with the fallback, so results are bit-identical
+            terms, tids32, dids32, tf32, doc_lens_i32 = native
+            vocab: Dict[str, int] = {t: i for i, t in enumerate(terms)}
+            v = len(terms)
+            tids = tids32.astype(np.int64)
+            dids = dids32.astype(np.int64)
+            tf = tf32.astype(np.int64)
+            doc_lens_i = doc_lens_i32.astype(np.int64)
         else:
-            vocab = {}
-            v = 0
-            tids = dids = np.zeros((0,), np.int64)
-            tf = np.zeros((0,), np.int64)
+            all_toks = [tokenize_lexical(t, stemmer=stemmer)
+                        for t in corpus]
+            doc_lens_i = np.array([len(t) for t in all_toks], np.int64)
+            # vectorized vocab + postings: np.unique over all tokens,
+            # then over (term, doc) pairs — the pairs come out sorted by
+            # (term, doc), which IS the term-major CSR order
+            flat = np.array([t for toks in all_toks for t in toks],
+                            dtype=object)
+            if flat.size:
+                doc_of_tok = np.repeat(np.arange(n, dtype=np.int64),
+                                       doc_lens_i)
+                uniq, inv = np.unique(flat.astype(str),
+                                      return_inverse=True)
+                vocab = {t: i for i, t in enumerate(uniq)}
+                v = len(uniq)
+                pair_key = inv.astype(np.int64) * n + doc_of_tok
+                uk, tf = np.unique(pair_key, return_counts=True)
+                tids = (uk // n).astype(np.int64)
+                dids = (uk % n).astype(np.int64)
+            else:
+                vocab = {}
+                v = 0
+                tids = dids = np.zeros((0,), np.int64)
+                tf = np.zeros((0,), np.int64)
         doc_lens = doc_lens_i.astype(np.float64)
         avgdl = float(doc_lens.mean()) if n else 1.0
         avgdl = max(avgdl, 1e-9)

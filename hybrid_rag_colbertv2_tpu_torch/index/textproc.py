@@ -9,8 +9,10 @@ Porter (1980) stemmer implemented from the published algorithm. Corpus and
 query must be processed identically — both go through ``tokenize_lexical``.
 
 Copy of ``hybrid_rag_colbertv2_tpu/index/textproc.py`` for the PyTorch
-port, which uses only this pure-Python path (the JAX package's native C++
-path is byte-identical to it).
+port. The port's native C++ library (utils/native.py, its own copy of
+``csrc/textproc.cpp``) is used when it builds; this pure-Python
+implementation is the always-available fallback and the oracle the
+native path is tested against.
 """
 
 from __future__ import annotations
@@ -461,5 +463,12 @@ def tokenize_lexical(text: str, *, stopwords=ENGLISH_STOPWORDS,
 
 def tokenize_corpus(corpus: List[str], stem: bool = True,
                     stemmer: str = "snowball") -> List[List[str]]:
-    """Batch tokenization (pure Python; the port has no native path)."""
+    """Batch tokenization — the port's native C++ library
+    (utils/native.py) when it builds, with this module's pure-Python
+    implementation as the tested-identical fallback."""
+    from ..utils.native import tokenize_corpus_native
+
+    native = tokenize_corpus_native(corpus, stem=stem, stemmer=stemmer)
+    if native is not None:
+        return native
     return [tokenize_lexical(t, stem=stem, stemmer=stemmer) for t in corpus]

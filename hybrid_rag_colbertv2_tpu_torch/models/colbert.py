@@ -28,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -38,6 +38,9 @@ from ..utils.device import DeviceLike, resolve_device, set_fp32_matmul_exact
 from ..utils.logging import get_logger
 
 log = get_logger(__name__)
+
+# maps a parameter to the device a product runs on (identity on one device)
+Placer = Callable[[torch.Tensor], torch.Tensor]
 
 
 @dataclass(frozen=True)
@@ -129,21 +132,51 @@ def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype
-           ) -> torch.Tensor:
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def _dense(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype,
+           place: Placer = _same) -> torch.Tensor:
     """flax ``nn.Dense(dtype=dtype)``: input, kernel and bias cast to
-    ``dtype``, the product in it."""
-    bias = None if layer.bias is None else layer.bias.to(dtype)
-    return nn.functional.linear(x.to(dtype), layer.weight.to(dtype), bias)
+    ``dtype``, the product in it. ``place`` maps each parameter to the
+    device the product runs on (parallel/params.py; identity here)."""
+    bias = None if layer.bias is None else place(layer.bias).to(dtype)
+    return nn.functional.linear(x.to(dtype), place(layer.weight).to(dtype),
+                                bias)
 
 
-def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype
-                ) -> torch.Tensor:
+def _layer_norm(layer: nn.LayerNorm, x: torch.Tensor, dtype: torch.dtype,
+                place: Placer = _same) -> torch.Tensor:
     """flax ``nn.LayerNorm(dtype=dtype)``: statistics and the affine in
     fp32, the result cast to ``dtype``."""
     return nn.functional.layer_norm(
-        x.to(torch.float32), layer.normalized_shape, layer.weight,
-        layer.bias, layer.eps).to(dtype)
+        x.to(torch.float32), layer.normalized_shape, place(layer.weight),
+        place(layer.bias), layer.eps).to(dtype)
+
+
+def attend(cfg: "ColBERTConfig", q: torch.Tensor, k: torch.Tensor,
+           v: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Self-attention over the heads given: q, k, v (B, S, heads, Dh) in
+    the activation dtype, ``mask`` (B, S) bool on the keys ->
+    (B, S, heads * Dh). Every head is independent, so a tensor-parallel
+    shard runs this on its own heads (parallel/params.py)."""
+    dt = cfg.dtype
+    b, s, nh, dh = q.shape
+    if cfg.position_embedding == "rope":
+        # fp32 tables: the rotated q, k come out fp32, as in JAX
+        cos, sin = _rope_cache(s, dh, cfg.rope_base, q.device)
+        q = _apply_rope(q, cos, sin, cfg.rope_interleaved)
+        k = _apply_rope(k, cos, sin, cfg.rope_interleaved)
+    # both einsums accumulate in fp32 (preferred_element_type): bf16
+    # products are exact in fp32
+    f32 = torch.float32
+    att = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32))
+    att = att / float(np.sqrt(dh))
+    bias = torch.where(mask[:, None, None, :], 0.0, -1e30)
+    att = torch.softmax(att + bias, dim=-1).to(dt)
+    out = torch.einsum("bhqk,bkhd->bqhd", att.to(f32), v.to(f32))
+    return out.to(dt).reshape(b, s, nh * dh)
 
 
 class SelfAttention(nn.Module):
@@ -165,20 +198,7 @@ class SelfAttention(nn.Module):
         q = _dense(self.query, x, dt).reshape(b, s, nh, dh)
         k = _dense(self.key, x, dt).reshape(b, s, nh, dh)
         v = _dense(self.value, x, dt).reshape(b, s, nh, dh)
-        if cfg.position_embedding == "rope":
-            # fp32 tables: the rotated q, k come out fp32, as in JAX
-            cos, sin = _rope_cache(s, dh, cfg.rope_base, x.device)
-            q = _apply_rope(q, cos, sin, cfg.rope_interleaved)
-            k = _apply_rope(k, cos, sin, cfg.rope_interleaved)
-        # both einsums accumulate in fp32 (preferred_element_type): bf16
-        # products are exact in fp32
-        f32 = torch.float32
-        att = torch.einsum("bqhd,bkhd->bhqk", q.to(f32), k.to(f32))
-        att = att / float(np.sqrt(dh))
-        bias = torch.where(mask[:, None, None, :], 0.0, -1e30)
-        att = torch.softmax(att + bias, dim=-1).to(dt)
-        out = torch.einsum("bhqk,bkhd->bqhd", att.to(f32), v.to(f32))
-        return _dense(self.out, out.to(dt).reshape(b, s, h), dt)
+        return _dense(self.out, attend(cfg, q, k, v, mask), dt)
 
 
 class EncoderLayer(nn.Module):
@@ -229,6 +249,9 @@ class ColBERTModel(nn.Module):
                                                   cfg.colbert_dim)
             self.anchor_gate = nn.Parameter(
                 torch.tensor(cfg.lexical_anchor, dtype=torch.float32))
+        # a forward plan over these Parameters, or None
+        # (parallel/params.py::shard_encoder_params)
+        self.tp_plan = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Random init from ``generator`` (the JAX package's flax
@@ -250,33 +273,55 @@ class ColBERTModel(nn.Module):
             if self.cfg.lexical_anchor > 0.0:
                 self.anchor_gate.fill_(self.cfg.lexical_anchor)
 
-    def forward(self, input_ids: torch.Tensor,
-                attention_mask: torch.Tensor) -> torch.Tensor:
+    def embed(self, input_ids: torch.Tensor, attention_mask: torch.Tensor,
+              place: Placer = _same) -> torch.Tensor:
+        """Token + position + type embeddings and their LayerNorm."""
         cfg = self.cfg
         dt = cfg.dtype
         # flax Embed(dtype=dt) casts the table; the rows it gathers are
         # the same values
-        x = self.word_embeddings(input_ids).to(dt)
+        emb = nn.functional.embedding
+        x = emb(input_ids, place(self.word_embeddings.weight)).to(dt)
         if cfg.position_embedding == "learned":
             m = attention_mask.to(torch.int64)
             positions = torch.cumsum(m, dim=1) * m + cfg.pad_token_id
-            x = x + self.position_embeddings(positions).to(dt)
+            x = x + emb(positions,
+                        place(self.position_embeddings.weight)).to(dt)
         if cfg.type_vocab_size:
-            x = x + self.token_type_embeddings.weight[0].to(dt)
-        x = _layer_norm(self.embeddings_ln, x, dt)
-        mask = attention_mask.to(torch.bool)
-        for layer in self.layers:
-            x = layer(x, mask)
-        emb = _dense(self.colbert_linear, x, dt)
+            x = x + place(self.token_type_embeddings.weight)[0].to(dt)
+        return _layer_norm(self.embeddings_ln, x, dt, place)
+
+    def project(self, x: torch.Tensor, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor, place: Placer = _same
+                ) -> torch.Tensor:
+        """The projection head, the lexical anchor, the L2 norm and the
+        zeroed padding rows."""
+        cfg = self.cfg
+        dt = cfg.dtype
+        emb = _dense(self.colbert_linear, x, dt, place)
         if cfg.lexical_anchor > 0.0:
             emb = emb / torch.clamp(
                 torch.linalg.vector_norm(emb, dim=-1, keepdim=True),
                 min=1e-12)
-            emb = emb + (self.anchor_gate.to(dt)
-                         * self.anchor_embeddings(input_ids).to(dt))
+            emb = emb + (place(self.anchor_gate).to(dt)
+                         * nn.functional.embedding(
+                             input_ids,
+                             place(self.anchor_embeddings.weight)).to(dt))
         emb = emb / torch.clamp(
             torch.linalg.vector_norm(emb, dim=-1, keepdim=True), min=1e-12)
         return emb * attention_mask[..., None].to(emb.dtype)
+
+    def forward(self, input_ids: torch.Tensor,
+                attention_mask: torch.Tensor) -> torch.Tensor:
+        if self.tp_plan is not None:
+            # tensor-parallel forward over the same Parameters
+            # (parallel/params.py::shard_encoder_params)
+            return self.tp_plan.forward(self, input_ids, attention_mask)
+        x = self.embed(input_ids, attention_mask)
+        mask = attention_mask.to(torch.bool)
+        for layer in self.layers:
+            x = layer(x, mask)
+        return self.project(x, input_ids, attention_mask)
 
 
 def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -308,16 +353,15 @@ def params_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
-    """A ``ColBERTModel``'s parameters -> the JAX ``encoder_params.npz``
-    keys, the inverse of ``params_from_jax``: ``nn.Linear.weight``
-    (out, in) becomes the Flax ``kernel`` (in, out), an Embedding's
-    weight ``embedding``, a LayerNorm's ``scale``; ``layers.{i}`` becomes
-    ``layer_{i}``; every array fp32."""
+def jax_leaves(model: nn.Module):
+    """-> [(JAX flat name, parameter)] in ``params_to_jax``'s order: an
+    ``nn.Linear.weight`` is the Flax ``kernel`` (transposed there), an
+    Embedding's weight ``embedding``, a LayerNorm's ``scale``;
+    ``layers.{i}`` is ``layer_{i}``."""
     leaves = {nn.Linear: {"weight": "kernel", "bias": "bias"},
               nn.Embedding: {"weight": "embedding"},
               nn.LayerNorm: {"weight": "scale", "bias": "bias"}}
-    out: Dict[str, np.ndarray] = {}
+    out = []
     for name, mod in model.named_modules():
         names = leaves.get(type(mod))
         if names is None:
@@ -327,14 +371,21 @@ def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
             path = [f"layer_{path[1]}"] + path[2:]
         for attr, leaf in names.items():
             t = getattr(mod, attr)
-            if t is None:
-                continue
-            a = t.detach().to(torch.float32).cpu().numpy()
-            out["/".join(path + [leaf])] = a.T.copy() if leaf == "kernel" \
-                else a
+            if t is not None:
+                out.append(("/".join(path + [leaf]), t))
     if hasattr(model, "anchor_gate"):
-        out["anchor_gate"] = model.anchor_gate.detach().to(
-            torch.float32).cpu().numpy()
+        out.append(("anchor_gate", model.anchor_gate))
+    return out
+
+
+def params_to_jax(model: nn.Module) -> Dict[str, np.ndarray]:
+    """A ``ColBERTModel``'s parameters -> the JAX ``encoder_params.npz``
+    keys, the inverse of ``params_from_jax`` (names from ``jax_leaves``;
+    kernels transposed to (in, out)); every array fp32."""
+    out: Dict[str, np.ndarray] = {}
+    for name, t in jax_leaves(model):
+        a = t.detach().to(torch.float32).cpu().numpy()
+        out[name] = a.T.copy() if name.endswith("/kernel") else a
     return out
 
 

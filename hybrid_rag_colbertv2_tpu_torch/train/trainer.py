@@ -28,8 +28,18 @@ counterpart. Checkpoints are one ``torch.save`` file (the model state,
 the optimizer state with its update count, the step), not orbax
 directories. Training runs on the encoder's device, in fp32 without
 TF32 where the encoder's activations are fp32 (``ColBERTEncoder`` turns
-TF32 off, forward and backward); the JAX trainer's ``mesh`` argument
-comes with the port of ``parallel/`` (ROADMAP.md).
+TF32 off, forward and backward).
+
+Under a ``mesh`` (JAX ``train/trainer.py:137-194``) the global batch is
+split over the ``data`` axis in contiguous row blocks (JAX's
+``P(data, None)``): each data row encodes its block on its own devices,
+tensor-parallel over the ``model`` axis when the encoder was given
+``parallel/params.py::shard_encoder_params`` for this mesh, else on its
+first device; the embeddings are gathered to the mesh's lead in shard
+order and the loss is the global batch's, as GSPMD keeps it: every query
+against all ``B * (1 + H)`` doc rows of the batch, labels on the global
+diagonal. One process drives every shard; autograd sums each shard's
+gradient into the one ``Parameter``, and AdamW steps it once.
 """
 
 from __future__ import annotations
@@ -43,6 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from ..models.colbert import ColBERTEncoder
+from ..parallel.mesh import Mesh
+from ..parallel.params import TensorParallelPlan
 from ..utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -107,13 +119,15 @@ def make_train_step(model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer,
                     schedule: Callable[[int], float], temperature: float,
                     tie_weight: float = 0.0,
-                    tie_pairs: Optional[Tuple[Tuple[int, int], ...]] = None):
+                    tie_pairs: Optional[Tuple[Tuple[int, int], ...]] = None,
+                    plan: Optional[TensorParallelPlan] = None):
     """-> step(batch, count) -> {"loss", "accuracy"} (0-d tensors): one
     AdamW update of ``model``'s parameters in place, at the learning rate
     ``schedule(count)``, ``count`` being the updates made before it.
 
     batch: dict of q_ids/q_mask/d_ids/d_mask tensors on the model's
-    device, doc rows positives first."""
+    device, doc rows positives first. With ``plan`` its rows are split
+    over the plan's data axis (``TensorParallelPlan.encode_rows``)."""
     params = list(model.parameters())
     use_tie = tie_weight > 0.0 and tie_pairs
     if use_tie:
@@ -125,8 +139,12 @@ def make_train_step(model: torch.nn.Module,
 
     def step(batch: Dict[str, torch.Tensor], count: int
              ) -> Dict[str, torch.Tensor]:
-        q_emb = model(batch["q_ids"], batch["q_mask"])
-        d_emb = model(batch["d_ids"], batch["d_mask"])
+        if plan is None:
+            q_emb = model(batch["q_ids"], batch["q_mask"])
+            d_emb = model(batch["d_ids"], batch["d_mask"])
+        else:
+            q_emb = plan.encode_rows(model, batch["q_ids"], batch["q_mask"])
+            d_emb = plan.encode_rows(model, batch["d_ids"], batch["d_mask"])
         scores = _maxsim_matrix(q_emb, d_emb, batch["d_mask"]) / temperature
         labels = torch.arange(scores.shape[0], device=scores.device)
         loss = F.cross_entropy(scores, labels)
@@ -153,13 +171,26 @@ def make_train_step(model: torch.nn.Module,
 
 class ColBERTTrainer:
     """Host-side loop: tokenize pairs, batch, step on the encoder's
-    device."""
+    device, or over ``mesh`` (the batch sharded on ``data_axis``)."""
 
     def __init__(self, encoder: ColBERTEncoder,
-                 train_cfg: Optional[TrainConfig] = None):
+                 train_cfg: Optional[TrainConfig] = None,
+                 mesh: Optional[Mesh] = None, data_axis: str = "data"):
         self.encoder = encoder
         self.cfg = train_cfg or TrainConfig()
         self.device = encoder.device
+        self.mesh = mesh
+        self.data_axis = data_axis
+        self.plan = None
+        if mesh is not None:
+            self.plan = encoder.model.tp_plan
+            if self.plan is None:
+                # replicated parameters: data parallelism alone
+                self.plan = TensorParallelPlan(mesh, tensor_parallel=False,
+                                               data_axis=data_axis)
+            elif self.plan.mesh != mesh:
+                raise ValueError("the encoder is sharded over another mesh "
+                                 "than the trainer's")
         cfg = self.cfg
         self.schedule = warmup_cosine_decay_schedule(
             0.0, cfg.learning_rate, cfg.warmup_steps,
@@ -170,7 +201,8 @@ class ColBERTTrainer:
         self.updates = 0        # the schedule's count (optax's step count)
         self.step_fn = make_train_step(encoder.model, self.optimizer,
                                        self.schedule, cfg.temperature,
-                                       cfg.tie_weight, cfg.tie_pairs)
+                                       cfg.tie_weight, cfg.tie_pairs,
+                                       self.plan)
 
     # ------------------------------------------------------------------
     def _make_batch(self, pairs: Sequence[Sequence]) -> Dict[str,
@@ -265,8 +297,18 @@ class ColBERTTrainer:
         if cur and not batches:
             # fewer distinct positives than batch_size: train on the
             # smaller batch rather than tiling pairs (duplicated positives
-            # would compete as negatives)
-            batches.append(cur)
+            # would compete as negatives). Under a mesh the batch axis
+            # must divide the data axis; trim to the largest multiple.
+            if self.mesh is not None:
+                n_data = self.mesh.shape[self.data_axis]
+                keep = (len(cur) // n_data) * n_data
+                if keep == 0:
+                    log.warning(
+                        "only %d distinct training pairs for a %d-way "
+                        "data mesh — skipping training", len(cur), n_data)
+                cur = cur[:keep]
+            if cur:
+                batches.append(cur)
         if not batches:
             log.warning("no trainable batches — returning without training")
             return []

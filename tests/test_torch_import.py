@@ -31,7 +31,12 @@ def test_port_imports_no_jax():
             f"{PORT}.models.convert", f"{PORT}.index.bucketed",
             f"{PORT}.parallel", f"{PORT}.parallel.mesh",
             f"{PORT}.parallel.sharded", f"{PORT}.parallel.distributed",
-            f"{PORT}.index.checkpoint"} <= set(mods)
+            f"{PORT}.index.checkpoint", f"{PORT}.parallel.params",
+            f"{PORT}.utils.timing", f"{PORT}.utils.profiling",
+            f"{PORT}.utils.native", f"{PORT}.tools.check_env",
+            f"{PORT}.tools.eval_recall", f"{PORT}.tools.organic_questions",
+            f"{PORT}.tools.serve_probe", f"{PORT}.tools.stage_probe"
+            } <= set(mods)
     # neither JAX nor what the card's machine lacks (requests, PyMuPDF,
     # safetensors) nor the JAX trainer's optimizer and checkpoint
     # libraries
@@ -177,3 +182,29 @@ def test_unported_layouts_raise(tmp_path):
         np.asarray(bk.search_scores(jnp.asarray(q))), rtol=1e-5, atol=1e-4)
     assert MeshConfig(index_dtype="auto").resolve_index_dtype(
         10, 128, device="cpu") == "int8"
+
+
+def test_tools_need_cuda_unless_cpu(monkeypatch, tmp_path, capsys):
+    """The tools run on the card unless given the CPU: without one the
+    stage probe, the eval and the serving probe raise the port's error,
+    and check_env fails every device check (the kernel probes always)."""
+    from hybrid_rag_colbertv2_tpu_torch.config import RAGConfig
+    from hybrid_rag_colbertv2_tpu_torch.tools import (
+        check_env, eval_recall, serve_probe, stage_probe)
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage_probe.main(["--n-docs", "8"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        stage_probe.main(["--flagship"])
+    RAGConfig(db_path=str(tmp_path / "rag.db")).save(tmp_path / "cfg.json")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        eval_recall.main(["--config", str(tmp_path / "cfg.json")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_probe.build_app(str(tmp_path / "sp"), 1, 0)
+    capsys.readouterr()
+    assert check_env.main([]) == 1
+    out = capsys.readouterr().out
+    ok = {ln.split(":")[0][9:] for ln in out.splitlines()
+          if ln.startswith("  [ok]")}
+    assert ok == {"tokenizer", "native textproc"}, out
