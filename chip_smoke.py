@@ -9,6 +9,7 @@
     python3 chip_smoke.py --sharded-only  # build + the sharded phases
     python3 chip_smoke.py --train-sharded-only  # build + sharded training
     python3 chip_smoke.py --tools-only    # build + the app phase + the tools
+    python3 chip_smoke.py --bench-only    # build + the bench phase
     python3 chip_smoke.py --variant KERNEL:NAME=DIR ...  # + time other builds
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
@@ -120,6 +121,13 @@ Then the rest of the port, on the same card:
     TP forward at model extents 2 and 4 against the unsharded one, and
     3 DP x TP steps on a (2, 2) mesh against 3 unsharded steps, both
     timed.
+
+Last, the port's bench and the quickstart: ``--bench`` through the CLI
+in a subprocess at the card's full sizes (bench.py's headline, recall,
+1M, throughput and 2M passes; its realdata and organic passes switched
+off), its one JSON line checked; one realdata seed in this process (the
+app trained 300 steps, the gate, 9 evals whose exact baseline is the
+int8 kernel); ``examples/demo.py`` in a subprocess.
 
 Copies between cards are not exercised: the machine has one card.
 
@@ -1314,6 +1322,11 @@ def main() -> int:
         print(json.dumps({"train_sharded": train, "card": card}))
         log("train-sharded-only: stopping after the sharded training phase")
         return 0
+    if "--bench-only" in sys.argv[1:]:
+        bench = phase_bench(device, peaks)
+        print(json.dumps({"bench": bench, "card": card}))
+        log("bench-only: stopping after the bench phase")
+        return 0
     if "--tools-only" in sys.argv[1:]:
         app = phase_app(device, then=lambda a, r: phase_tools(device, a, r))
         print(json.dumps({"tools": app.pop("then"), "card": card}))
@@ -1444,6 +1457,12 @@ def main() -> int:
     sharded["app"] = phase_sharded_app(device)
     stamp("the training side of sharding")
     train_sharded = phase_train_sharded(device)
+    # after every phase that held a big index, so the bench's subprocess
+    # has the card's memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    stamp("the port's bench, a realdata seed, the demo")
+    bench = phase_bench(device, peaks)
     stamp("whole run")
     rows = [{"name": kernel, "route": "cuda",
              "source": f"{PORT}/csrc/{src}",
@@ -1471,6 +1490,9 @@ def main() -> int:
              "train_sharded_launches": sum(
                  n for k, n in train_sharded["graft"]["launches"].items()
                  if k.startswith(layout + "/")),
+             # the bench subprocess and the realdata seed (the wrapper's
+             # count; bf16 and fp32 share it)
+             "bench_launches": bench["launches"][KERNELS[kernel][1]],
              **nums[kernel]}
             for kernel, (layout, _, _, src, line) in KERNELS.items()]
     print(json.dumps({"app": app, "card": card}))
@@ -1478,6 +1500,7 @@ def main() -> int:
     print(json.dumps({"sharded": sharded, "card": card}))
     print(json.dumps({"tools": tools, "card": card}))
     print(json.dumps({"train_sharded": train_sharded, "card": card}))
+    print(json.dumps({"bench": bench, "card": card}))
     print(json.dumps({"retrieve_batch_ms": lat, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -4147,6 +4170,102 @@ def phase_tools(device, app, root: Path) -> dict:
     out["seconds"] = time.perf_counter() - t0
     log(f"tools phase: {out['seconds']:.1f}s; wrapper launches "
         f"{out['launches']}")
+    return out
+
+
+# -- the port's bench (bench.py's passes) and the quickstart demo -----------
+
+# the bench line's numeric keys of the headline, recall, 1M (with the
+# throughput fields) and 2M passes; realdata and organic are switched off
+# in the subprocess (the seed below runs the realdata path here)
+BENCH_KEYS = ("value", "vs_baseline", "recall10_vs_exact",
+              "recall10_vs_exact_int4", "p50_ms_1m", "vs_baseline_1m",
+              "p50_ms_1m_int4", "qps_chip_1m_int4", "scan_p50_ms_1m_int4",
+              "scan_tflops_1m_int4", "scan_gbps_1m_int4",
+              "encoder_p50_ms_b8", "encoder_tflops", "p50_ms_2m_int4",
+              "vs_baseline_2m")
+BENCH_SEED_STEPS = 300          # the app phase's training steps
+BENCH_TIMEOUT = 600
+SEED_SOURCES = ("paraphrase", "ict", "adversarial")
+
+
+def phase_bench(device, peaks) -> dict:
+    """``--bench`` through the CLI in a subprocess (the card's full sizes,
+    realdata and organic switched off by the JAX bench's own switches):
+    rc 0, the last stdout line one JSON object with every ``BENCH_KEYS``
+    finite, both recalls in [0, 1], the int4 scan below the card's dense
+    bf16 peak, ``maxsim_int4_group`` launched. Then one realdata seed in
+    this process (``bench._seed_eval``, seed 0, BENCH_SEED_STEPS steps:
+    the app, the gate, its transfer check and 9 evals, whose exact
+    baseline is route 0, ``maxsim_int8``), counted from 0; then the
+    quickstart demo in a subprocess on the card. -> numbers"""
+    import math
+    import os
+    import tempfile
+    from hybrid_rag_colbertv2_tpu_torch import bench
+    t0 = time.perf_counter()
+    env = dict(os.environ, HRAG_BENCH_REALDATA="0", HRAG_BENCH_ORGANIC="0")
+    r = subprocess.run([sys.executable, "-m", f"{PORT}.app.cli", "--bench"],
+                       cwd=REPO, env=env, capture_output=True, text=True,
+                       timeout=BENCH_TIMEOUT)
+    out = {"cli_bench_s": time.perf_counter() - t0}
+    out["pass_s"] = {k: float(v) for k, v in re.findall(
+        r"(?m)^\[pass (\S+): ([\d.]+)s\]$", r.stderr)}
+    log(f"--bench (subprocess, {out['cli_bench_s']:.1f}s): rc "
+        f"{r.returncode}; stderr tail:\n{r.stderr[-6000:]}")
+    if r.returncode != 0:
+        raise AssertionError(f"--bench returned {r.returncode}")
+    line = json.loads(r.stdout.strip().splitlines()[-1])
+    bad = [k for k in BENCH_KEYS if not isinstance(line.get(k), (int, float))
+           or not math.isfinite(line[k])]
+    if bad or line.get("unit") != "ms" or "metric" not in line:
+        raise AssertionError(f"bench line lacks finite {bad}: {line}")
+    if not all(0.0 <= line[k] <= 1.0 for k in ("recall10_vs_exact",
+                                               "recall10_vs_exact_int4")):
+        raise AssertionError(f"bench recall outside [0, 1]: {line}")
+    if line["scan_tflops_1m_int4"] >= peaks[0] / 1e12:
+        raise AssertionError(f"int4 scan {line['scan_tflops_1m_int4']} "
+                             f"TFLOP/s at or above the bf16 peak")
+    out["line"] = line
+    out["bench_launches"] = json.loads(re.search(
+        r"(?m)^kernel launches: (\{.*\})$", r.stderr).group(1))
+    if out["bench_launches"]["maxsim_scores_int4_doc"] < 1:
+        raise AssertionError(f"bench launches {out['bench_launches']}")
+
+    t0 = time.perf_counter()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as td:
+        seed = bench._seed_eval(td, APP_DOCS, BENCH_SEED_STEPS, 0, 1024, 512,
+                                Path(td) / "cache", device)
+    out["seed_launches"] = launch_counts()
+    out["seed_s"] = time.perf_counter() - t0
+    if out["seed_launches"]["maxsim_scores_int8"] < 1:
+        raise AssertionError(f"realdata seed launches "
+                             f"{out['seed_launches']}")
+    want = {"hit10", "hit10_parity", "hit10_rrf", "hit10_bm25_only",
+            "hit10_dense_only", "agreement10_vs_exact", "queries"}
+    if ({"gate", "chunks", "gate_transfer", *SEED_SOURCES} - set(seed)
+            or any(set(seed[s]) != want for s in SEED_SOURCES)
+            or not all(0.0 <= seed[s][k] <= 1.0 for s in SEED_SOURCES
+                       for k in want - {"queries"})):
+        raise AssertionError(f"realdata seed result {seed}")
+    out["seed"] = {s: seed[s] for s in SEED_SOURCES}
+    out["seed"].update(chunks=seed["chunks"], gate=seed["gate"]["picked"],
+                       transfer=seed["gate_transfer"]["transfer_hit@10"])
+    log(f"realdata seed 0 at {BENCH_SEED_STEPS} steps ({out['seed_s']:.1f}s,"
+        f" {seed['chunks']} chunks): {json.dumps(out['seed'])}; launches "
+        f"{out['seed_launches']}")
+    out["launches"] = {w: out["bench_launches"][w] + out["seed_launches"][w]
+                       for w in WRAPPERS}
+
+    t0 = time.perf_counter()
+    d = subprocess.run([sys.executable, "-m", f"{PORT}.examples.demo"],
+                       cwd=REPO, capture_output=True, text=True, timeout=300)
+    out["demo_s"] = time.perf_counter() - t0
+    if d.returncode != 0 or "retrievable" not in d.stdout:
+        raise AssertionError(f"demo returned {d.returncode}: "
+                             f"{d.stdout[-2000:]}{d.stderr[-2000:]}")
+    log(f"demo (subprocess, {out['demo_s']:.1f}s):\n{d.stdout[-1500:]}")
     return out
 
 

@@ -4,9 +4,10 @@ local_rag_complete.py:1245-1286) plus --query and --bench (SURVEY.md #14).
 Port of ``hybrid_rag_colbertv2_tpu/app/cli.py``: the same flags and
 outputs, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions). ``--eval`` runs tools/eval_recall.py on the
-configured app. ``--bench`` waits for the port of the repository's
-``bench.py`` (ROADMAP.md section 1, item 9): until then it exits with an
-error and runs nothing.
+configured app. ``--bench`` runs the port's bench
+(``python -m hybrid_rag_colbertv2_tpu_torch.bench``) on ``--device`` in a
+subprocess and returns its exit code; its ``HRAG_BENCH_*`` switches come
+through the environment.
 
 Run: ``python -m hybrid_rag_colbertv2_tpu_torch.app.cli --help``
 """
@@ -41,7 +42,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--stats", action="store_true",
                    help="show database statistics")
     p.add_argument("--bench", action="store_true",
-                   help="run the retrieval benchmark (not ported yet)")
+                   help="run the retrieval benchmark (the port's bench.py; "
+                        "passes switched off by HRAG_BENCH_*=0)")
     p.add_argument("--eval", type=int, default=None, metavar="N",
                    help="evaluate retrieval quality over the indexed corpus "
                         "with N pseudo-queries (tools/eval_recall.py)")
@@ -100,6 +102,13 @@ def main(argv=None) -> int:
 
 def _main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.bench:
+        # the bench builds its own indexes: no app, no database
+        import subprocess
+        return subprocess.call(
+            [sys.executable, "-m", "hybrid_rag_colbertv2_tpu_torch.bench",
+             "--device", args.device],
+            cwd=Path(__file__).resolve().parents[2])
     cfg = RAGConfig.load(args.config) if args.config else RAGConfig()
     if args.model:
         cfg.chat_model = args.model
@@ -183,11 +192,6 @@ def _main(argv=None) -> int:
         app.initialize_chatbot(use_mesh=False)
         print(json.dumps(evaluate(app, n_queries=args.eval)))
         return 0
-
-    if args.bench:
-        print("error: --bench waits for the port of the repository's "
-              "bench.py (ROADMAP.md section 1, item 9)", file=sys.stderr)
-        return 2
 
     build_parser().print_help()
     return 0

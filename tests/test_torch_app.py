@@ -390,21 +390,48 @@ def test_cli_upload_then_query(world, tmp_path):
     assert rc == 0 and json.loads(out)["chunks"] == up["total_chunks"]
 
 
-@pytest.mark.parametrize("flag", [["--eval", "4"], ["--bench"]])
+@pytest.mark.parametrize("flag", [["--eval", "4"]])
 def test_cli_unported_flags_exit_naming_the_item(flag, tmp_path, capsys):
-    """``--bench`` waits for the port bench and exits 2 naming ROADMAP's
-    item 9. ``--eval`` is ported (tools/eval_recall.py): on an empty store
-    it runs and fails on what is missing, not on the item
-    (tests/test_torch_tools.py runs it on an indexed corpus)."""
+    """``--eval`` is ported (tools/eval_recall.py): on an empty store it
+    runs and fails on what is missing, not on ROADMAP's item 9
+    (tests/test_torch_tools.py runs it on an indexed corpus).
+    ``--bench`` is ported too (test_cli_bench_runs_the_port_bench)."""
     cfg_path = tmp_path / "cfg.json"
     RAGConfig(**_kw(tmp_path)).save(cfg_path)
     assert cli.main(["--config", str(cfg_path), "--device", "cpu"]
                     + flag) == 2
     err = capsys.readouterr().err
-    if flag[0] == "--bench":
-        assert "item 9" in err and "bench.py" in err
-    else:
-        assert "item 9" not in err and "nothing indexed" in err
+    assert "item 9" not in err and "nothing indexed" in err
+
+
+def test_cli_bench_runs_the_port_bench(monkeypatch, capfd):
+    """``--bench`` spawns the port's bench on ``--device`` as the JAX CLI
+    spawns bench.py, with the switches from the environment, and returns
+    its exit code; its last stdout line is the bench's JSON line."""
+    for env in ("RECALL", "1M", "2M", "REALDATA", "PRETRAINED", "ORGANIC"):
+        monkeypatch.setenv(f"HRAG_BENCH_{env}", "0")
+    assert cli.main(["--bench", "--device", "cpu"]) == 0
+    cap = capfd.readouterr()
+    res = json.loads(cap.out.strip().splitlines()[-1])
+    assert set(res) == {"metric", "value", "unit", "vs_baseline"}
+    assert "(cpu)" in res["metric"] and res["value"] > 0
+    assert "recall pass disabled via HRAG_BENCH_RECALL=0" in cap.err
+
+
+def test_demo_finds_the_uploaded_chunk(monkeypatch, tmp_path, capsys):
+    """The port's quickstart (examples/demo.py) on the CPU: two documents
+    indexed, three queries, a third document uploaded incrementally and
+    retrieved."""
+    import tempfile
+
+    from hybrid_rag_colbertv2_tpu_torch.examples import demo
+
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    hit = demo.main("cpu")
+    assert "XLA compiles" in hit["text"] and 1 <= hit["rank"] <= 5
+    out = capsys.readouterr().out
+    assert out.count("\nQ: ") == 3
+    assert f"new chunk {hit['chunk_id']} retrievable" in out
 
 
 # -- server (mirrors tests/test_server.py) ------------------------------------

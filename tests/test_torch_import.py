@@ -35,8 +35,8 @@ def test_port_imports_no_jax():
             f"{PORT}.utils.timing", f"{PORT}.utils.profiling",
             f"{PORT}.utils.native", f"{PORT}.tools.check_env",
             f"{PORT}.tools.eval_recall", f"{PORT}.tools.organic_questions",
-            f"{PORT}.tools.serve_probe", f"{PORT}.tools.stage_probe"
-            } <= set(mods)
+            f"{PORT}.tools.serve_probe", f"{PORT}.tools.stage_probe",
+            f"{PORT}.bench", f"{PORT}.examples.demo"} <= set(mods)
     # neither JAX nor what the card's machine lacks (requests, PyMuPDF,
     # safetensors) nor the JAX trainer's optimizer and checkpoint
     # libraries
