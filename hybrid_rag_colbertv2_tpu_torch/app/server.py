@@ -36,6 +36,7 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, List, Optional
 
+from ..utils import profiling
 from ..utils.logging import get_logger
 
 log = get_logger(__name__)
@@ -60,6 +61,16 @@ class MicroBatcher:
     queue and ride out in bigger batches. JAX dispatch is thread-safe;
     concurrent batches serialize on-device, which is exactly the overlap
     we want.
+
+    Inside ``profiling.record_spans()`` each query leaves ``mb.submit``
+    (its whole time in ``submit``; parent: the call that carried it) and
+    ``mb.queued`` (appended -> taken by the collector), and each batch,
+    under one call id, ``mb.slot_wait`` (the collector waiting for a
+    dispatch slot), ``mb.collect`` (first query taken -> handed to the
+    pool; ``n_real``, ``padded``), ``mb.handoff`` (handed -> a pool
+    thread starts it) and ``mb.call`` (the ``fn_batch`` call, every span
+    inside it on that thread carrying the call's id). ``batches_run`` and
+    ``requests_served`` count what was served.
     """
 
     def __init__(self, fn_batch: Callable, max_batch: int = 16,
@@ -76,7 +87,7 @@ class MicroBatcher:
         self.window_s = window_s
         self.timeout_s = timeout_s
         self.inflight = max(1, inflight)
-        self.batches_run = 0          # observability / tests
+        self.batches_run = 0
         self.requests_served = 0
         self._stats_lock = threading.Lock()   # concurrent dispatches
         self._cv = threading.Condition()
@@ -92,15 +103,27 @@ class MicroBatcher:
 
     # ------------------------------------------------------------------
     def submit(self, query: str, top_k: Optional[int] = None):
+        rec = profiling.recorder()
+        t0 = time.perf_counter_ns() if rec is not None else 0
         item = {"query": query, "top_k": top_k, "ev": threading.Event()}
         with self._cv:
+            if rec is not None:
+                item.update(qid=rec.new_id(), t_in=time.perf_counter_ns())
             self._items.append(item)
             self._cv.notify()
-        if not item["ev"].wait(self.timeout_s):
-            raise TimeoutError("retrieval batch timed out")
-        if "err" in item:
-            raise item["err"]
-        return item["rows"]
+        try:
+            if not item["ev"].wait(self.timeout_s):
+                raise TimeoutError("retrieval batch timed out")
+            if "err" in item:
+                raise item["err"]
+            return item["rows"]
+        finally:
+            if rec is not None:
+                t1, cid = time.perf_counter_ns(), item.get("call")
+                if "t_out" in item:
+                    rec.add("mb.queued", item["qid"], cid, item["t_in"],
+                            item["t_out"])
+                rec.add("mb.submit", item["qid"], cid, t0, t1)
 
     def close(self):
         with self._cv:
@@ -116,11 +139,20 @@ class MicroBatcher:
             p *= 2
         return min(p, cap)
 
+    @staticmethod
+    def _taken(item: dict, cid: Optional[int], t: int) -> None:
+        """The collector took ``item`` at ``t`` into call ``cid`` (its
+        ``submit`` records the spans, after the answer)."""
+        item["t_out"] = t
+        if cid is not None:
+            item["call"] = cid
+
     def _run(self):
         """Collector: form a batch only when a dispatch slot is free, then
         hand it to the pool. While every slot is busy, arrivals keep
         pooling in ``_items`` and leave in one bigger batch."""
         while True:
+            t_wait = time.perf_counter_ns()
             # wait for a dispatch slot FIRST — this is what lets the queue
             # grow into full batches while previous dispatches are in
             # flight (blocking with a timeout so shutdown stays prompt)
@@ -129,6 +161,7 @@ class MicroBatcher:
                     if self._stop:
                         self._drain_stop()
                         return
+            t_slot = time.perf_counter_ns()
             got_batch = False
             try:
                 with self._cv:
@@ -138,6 +171,12 @@ class MicroBatcher:
                         self._drain_stop()
                         return
                     batch = [self._items.pop(0)]
+                    rec = profiling.recorder()
+                    cid = span = None
+                    if rec is not None:
+                        cid = rec.new_id()
+                        t_first = time.perf_counter_ns()
+                        self._taken(batch[0], cid, t_first)
                 # gather more arrivals within the window, up to max_batch
                 deadline = time.monotonic() + self.window_s
                 while len(batch) < self.max_batch:
@@ -149,14 +188,25 @@ class MicroBatcher:
                             self._cv.wait(remaining)
                         while self._items and len(batch) < self.max_batch:
                             batch.append(self._items.pop(0))
+                            if rec is not None:
+                                self._taken(batch[-1], cid,
+                                            time.perf_counter_ns())
                 got_batch = True
+                if rec is not None:
+                    span = (rec, cid, time.perf_counter_ns())
                 try:
-                    self._pool.submit(self._dispatch, batch)
+                    self._pool.submit(self._dispatch, batch, span)
                 except Exception as e:   # pool shut down mid-collect
                     got_batch = False
                     for it in batch:
                         it["err"] = e
                         it["ev"].set()
+                if rec is not None:     # the batch is on its way
+                    rec.add("mb.slot_wait", cid, None, t_wait, t_slot)
+                    rec.add("mb.collect", cid, None, t_first, span[2],
+                            n_real=len(batch),
+                            padded=self._pad_size(len(batch),
+                                                  self.max_batch))
             finally:
                 if not got_batch:      # slot not consumed by a dispatch
                     self._slots.release()
@@ -167,13 +217,21 @@ class MicroBatcher:
             it["ev"].set()
         self._items.clear()
 
-    def _dispatch(self, batch: List[dict]):
+    def _dispatch(self, batch: List[dict], span=None):
+        """Run one batch; ``span`` is (recorder, call id, hand-off time)
+        while spans are recorded."""
+        cid = None if span is None else span[1]
         try:
             queries = [it["query"] for it in batch]
             size = self._pad_size(len(queries), self.max_batch)
             padded = queries + [queries[-1]] * (size - len(queries))
             ks = [it["top_k"] or self.default_top_k for it in batch]
-            rows = self._fn(padded, max(ks))
+            with profiling.annotate("mb.call", id=cid, n_real=len(batch),
+                                    padded=size) as call:
+                if span is not None:    # the hand-off ends as the call starts
+                    span[0].add("mb.handoff", cid, None, span[2],
+                                call.t0 if call else time.perf_counter_ns())
+                rows = self._fn(padded, max(ks))
             with self._stats_lock:
                 self.batches_run += 1
                 self.requests_served += len(batch)

@@ -51,6 +51,7 @@ from ..ops.topk import top_k
 from ..utils.cache import JitCache
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import StageTimer, get_logger
+from ..utils.profiling import annotate
 
 log = get_logger(__name__)
 
@@ -365,14 +366,20 @@ class _Graph:
 
     def run(self, packed: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Copy in, replay, copy out, on the current stream; the caller
-        holds the entry's lock from the copy-in to the copy-out."""
-        self.host_in.numpy()[...] = packed
-        self.dev_in.copy_(self.host_in, non_blocking=True)
-        self.graph.replay()
-        self.host_ids.copy_(self.ids, non_blocking=True)
-        self.host_scores.copy_(self.scores, non_blocking=True)
-        torch.cuda.current_stream(self.dev_in.device).synchronize()
-        return self.host_ids.numpy().copy(), self.host_scores.numpy().copy()
+        holds the entry's lock from the copy-in to the copy-out. Spans:
+        ``fused.launch`` (the copy-in, the replay and the copies out
+        enqueued), ``fused.sync``, ``fused.copy_out``."""
+        with annotate("fused.launch"):
+            self.host_in.numpy()[...] = packed
+            self.dev_in.copy_(self.host_in, non_blocking=True)
+            self.graph.replay()
+            self.host_ids.copy_(self.ids, non_blocking=True)
+            self.host_scores.copy_(self.scores, non_blocking=True)
+        with annotate("fused.sync"):
+            torch.cuda.current_stream(self.dev_in.device).synchronize()
+        with annotate("fused.copy_out"):
+            return (self.host_ids.numpy().copy(),
+                    self.host_scores.numpy().copy())
 
 
 class FusedCascade:
@@ -384,7 +391,9 @@ class FusedCascade:
     On CUDA each (B, Q) it sees is captured once as a CUDA graph (the
     way ``jax.jit`` keeps one executable per shape) and replayed after;
     a capture or replay that fails raises. On the CPU it runs eagerly.
-    It holds the model and every tensor the graphs read."""
+    It holds the model and every tensor the graphs read. Spans:
+    ``fused.lock`` (waiting for the entry's lock), ``fused.capture``
+    (``shape``), and ``_Graph.run``'s."""
 
     captures = 0        # graphs captured in this process, every entry
 
@@ -431,14 +440,20 @@ class FusedCascade:
         if self.device.type != "cuda":
             return self.eager(packed)
         packed = np.ascontiguousarray(packed, dtype=np.int32)
-        with self._lock, torch.cuda.device(self.device):
-            g = self._graphs.get(packed.shape)
-            if g is None:
-                with _CAPTURE_LOCK:
-                    g = _Graph(self, packed)
-                    FusedCascade.captures += 1
-                self._graphs[packed.shape] = g
-            return g.run(packed)
+        with annotate("fused.lock"):
+            self._lock.acquire()
+        try:
+            with torch.cuda.device(self.device):
+                g = self._graphs.get(packed.shape)
+                if g is None:
+                    with annotate("fused.capture", shape=packed.shape), \
+                            _CAPTURE_LOCK:
+                        g = _Graph(self, packed)
+                        FusedCascade.captures += 1
+                    self._graphs[packed.shape] = g
+                return g.run(packed)
+        finally:
+            self._lock.release()
 
 
 def fused_cascade_fn(model, query_len: int, statics: Dict,
@@ -710,10 +725,13 @@ class HybridRetriever:
 
         ``timings_out``: optional caller-local dict the per-call stage
         split is accumulated into (safe under concurrent callers: a
-        fused entry serializes its replays)."""
+        fused entry serializes its replays). Spans: ``retrieve.bind``
+        (the binding's lock, its check, the entry), then the stages
+        ``tokenize`` and ``encode+cascade``."""
         cfg = self.config
         k = top_k_final or cfg.final_top_k
-        with self._bind_lock:       # one consistent binding per call
+        # one consistent binding per call
+        with annotate("retrieve.bind"), self._bind_lock:
             self._check_binding()
             lex, dense = self._bound[:2]
             fused = self.build_entry(

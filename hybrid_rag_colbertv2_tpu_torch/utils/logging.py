@@ -3,19 +3,20 @@
 The reference instruments every stage with ``time.time()`` brackets and raw
 ``print`` lines (retrieval stages local_rag_complete.py:901-933, indexing
 steps :618-706). Here the same per-stage timing is a reusable ``StageTimer``
-that records structured metrics (name -> seconds) and can emit them as JSON,
-instead of scattered prints.
+that records structured metrics (name -> seconds) instead of scattered
+prints; each stage is also a span (``profiling.annotate``).
 """
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, Iterator, Optional
+
+from . import profiling
 
 
 def get_logger(name: str) -> logging.Logger:
@@ -53,10 +54,11 @@ class StageTimer:
         ``out`` — a caller-local dict that yields a PER-CALL split safe
         under concurrent callers (snapshot()/delta() on the shared
         totals would attribute the other in-flight call's stages to
-        this one)."""
+        this one). The stage is a span of its name."""
         t0 = time.perf_counter()
         try:
-            yield
+            with profiling.annotate(name):
+                yield
         finally:
             dt = time.perf_counter() - t0
             with self._lock:
@@ -67,11 +69,6 @@ class StageTimer:
     @property
     def total(self) -> float:
         return sum(self.timings.values())
-
-    def as_json(self) -> str:
-        d = dict(self.timings)
-        d["total"] = self.total
-        return json.dumps(d)
 
     def summary(self) -> str:
         lines = [f"  - {k}: {v:.4f}s" for k, v in self.timings.items()]

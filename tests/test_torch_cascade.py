@@ -34,6 +34,7 @@ from hybrid_rag_colbertv2_tpu_torch.models.tokenizer import ColBERTTokenizer
 from hybrid_rag_colbertv2_tpu_torch.ops import maxsim as tm
 from hybrid_rag_colbertv2_tpu_torch.ops.maxsim import maxsim_scores_int8
 from hybrid_rag_colbertv2_tpu_torch.retrieval.cascade import HybridRetriever
+from hybrid_rag_colbertv2_tpu_torch.utils import profiling
 
 _RNG = np.random.default_rng(11)
 # 300 distinct pseudo-words, 9 per chunk: chunks share few words
@@ -140,6 +141,27 @@ def test_port_serves_jax_layouts_with_jax_ids(built_layout, prefilter,
     np.testing.assert_allclose(scores, np.asarray(jscores), atol=1e-4,
                                rtol=0)
     assert ids[2, 0] == PLANTED
+
+
+def test_retrieve_batch_spans_carry_the_call(built):
+    """Inside a call's span, ``retrieve_batch`` leaves ``retrieve.bind``,
+    ``tokenize`` and ``encode+cascade`` under the call's id, in order,
+    and its per-call split as before."""
+    root, enc, mgr, penc, pmgr = built
+    retr = HybridRetriever(_paths(root, RAGConfig), pmgr, penc,
+                           device="cpu")
+    lt = {}
+    with profiling.record_spans() as rec:
+        with profiling.annotate("mb.call", id=5):
+            retr.retrieve_batch(QUERIES, timings_out=lt)
+    names = [s.name for s in rec.spans]
+    assert names == ["retrieve.bind", "tokenize", "encode+cascade",
+                     "mb.call"]
+    assert all(s.id == 5 for s in rec.spans)
+    spans = rec.spans[:3]
+    assert all(a.t1_ns <= b.t0_ns for a, b in zip(spans, spans[1:]))
+    assert set(lt) == set(retr.last_timings) == {"tokenize",
+                                                  "encode+cascade"}
 
 
 def test_retrieve_returns_planted_text(built):
