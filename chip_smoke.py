@@ -10,6 +10,7 @@
     python3 chip_smoke.py --train-sharded-only  # build + sharded training
     python3 chip_smoke.py --tools-only    # build + the app phase + the tools
     python3 chip_smoke.py --bench-only    # build + the bench phase
+    python3 chip_smoke.py --stage-a-only  # build + stage A's kernel phase
     python3 chip_smoke.py --variant KERNEL:NAME=DIR ...  # + time other builds
 
 Drives the port's main path (``hybrid_rag_colbertv2_tpu_torch``), never
@@ -164,6 +165,13 @@ N_DOCS_INT4, DOC_LEN_INT4 = 1_000_000, 64
 N_TOPICS, TOPIC_NOISE = 512, 0.35
 PLANTED_DOC = 4242
 N_TIMED_CALLS = 40
+# stage A (csrc/proxy_topk.cu) at the shapes of the benchmark's
+# colbertv2.msmarco-open cell: its corpus, D and C; batches of 8 and 16
+STAGE_A_N, STAGE_A_C, STAGE_A_BATCHES = 2_210_456, 1024, (8, 16)
+STAGE_A_BUCKETS = (25_700, 42_800, 102_800)
+STAGE_A_SYMBOL = "proxy_scan_kernel"
+STAGE_A_PARTS = (STAGE_A_SYMBOL, "select_round_kernel", "sort_chunk_kernel",
+                 "merge_rank_kernel", "reduce_kernel", "elementwise_kernel")
 # launches of each kernel at the main shape that must agree bit for bit
 # (the first is held against the plain version)
 N_REPEATS = 50
@@ -1269,7 +1277,7 @@ def main() -> int:
 
     # -- phase 1: build the kernels from csrc/, one nvcc each, at once ---
     t0 = time.perf_counter()
-    sources = sorted({KERNELS[k][3][:-3] for k in KERNELS})
+    sources = sorted({KERNELS[k][3][:-3] for k in KERNELS} | {"proxy_topk"})
     jobs = [(k, vname, d) for k, vs in variants.items() for vname, d in vs]
     with ThreadPoolExecutor(1 + len(jobs)) as pool:
         built = [pool.submit(_build.build_many, [KERNELS[k][3][:-3]], d)
@@ -1327,6 +1335,11 @@ def main() -> int:
         print(json.dumps({"bench": bench, "card": card}))
         log("bench-only: stopping after the bench phase")
         return 0
+    if "--stage-a-only" in sys.argv[1:]:
+        stage_a = phase_stage_a(device, peaks)
+        print(json.dumps({"stage_a": stage_a, "card": card}))
+        log("stage-a-only: stopping after the stage A phase")
+        return 0
     if "--tools-only" in sys.argv[1:]:
         app = phase_app(device, then=lambda a, r: phase_tools(device, a, r))
         print(json.dumps({"tools": app.pop("then"), "card": card}))
@@ -1339,6 +1352,8 @@ def main() -> int:
     phase_length_edges(device)
     phase_stress(device, variants)
     phase_float_skip(device)
+    stamp("stage A's kernel")
+    stage_a = phase_stage_a(device, peaks)
     if "--kernels-only" in sys.argv[1:]:
         log("kernels-only: stopping after the kernel checks")
         return 0
@@ -1424,7 +1439,8 @@ def main() -> int:
         want = {k: (1.0 if p == 0 and k == kernel else 0.0)
                 for k in KERNELS}
         prof = {how: profile_calls(f"{lay} dense_prefilter={p} {how}", fn,
-                                   path["batches"], want)
+                                   path["batches"], want,
+                                   stage_a=float(p != 0))
                 for how, fn in (("graph", r.retrieve_batch),
                                 ("eager", lambda b, r=r: eager_batch(r, b)))}
         for how, pr in prof.items():
@@ -1501,6 +1517,7 @@ def main() -> int:
     print(json.dumps({"tools": tools, "card": card}))
     print(json.dumps({"train_sharded": train_sharded, "card": card}))
     print(json.dumps({"bench": bench, "card": card}))
+    print(json.dumps({"stage_a": stage_a, "card": card}))
     print(json.dumps({"retrieve_batch_ms": lat, "card": card}))
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2124,7 +2141,8 @@ def phase_app(device, then=None) -> dict:
             want = {k: (1.0 if label == "0" and k == "maxsim_int8" else 0.0)
                     for k in KERNELS}
             pr = profile_calls(f"app int8 dense_prefilter={label}",
-                               a.query_batch, batches, want)
+                               a.query_batch, batches, want,
+                               stage_a=float(label != "0"))
             prof[label] = {"device_ms": pr["device_ms"],
                            "host_launches": pr["host_launches"],
                            "device_ops": pr["device_ops"]}
@@ -2164,7 +2182,145 @@ LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
 PROFILE_ATTEMPTS = 4
 
 
-def profile_calls(label, fn, batches, want, calls: int = 5) -> dict:
+def stage_a_inputs(device, n, b, seed):
+    """Unit bf16 pooled rows (a tenth duplicated, so proxies tie), some
+    zero-length docs, and a (b, LQ, 128) query batch with padded rows."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pooled = torch.randn((n, DIM), generator=gen, device=device)
+    pooled[1::10] = pooled[0::10][: pooled[1::10].shape[0]]
+    pooled = (pooled / pooled.norm(dim=1, keepdim=True)).to(torch.bfloat16)
+    lengths = torch.randint(16, DOC_LEN + 1, (n,), generator=gen,
+                            device=device, dtype=torch.int32)
+    lengths[7::1000] = 0
+    q = torch.randn((b, LQ, DIM), generator=gen, device=device)
+    q = q / q.norm(dim=-1, keepdim=True)
+    q[:, LQ - 4:] = 0.0
+    return q, pooled.contiguous(), lengths
+
+
+def stage_a_hold(label, q, pooled, lengths, n_docs, c) -> int:
+    """The kernel's candidates: exactly ``top_k`` of its own proxies, and
+    the plain version's but for swaps of proxies within 4 tolerances
+    (D ulps of each proxy's sum of magnitudes) of each other.
+    -> positions where the two lists differ"""
+    import torch
+    from hybrid_rag_colbertv2_tpu_torch.ops import prefilter
+    from hybrid_rag_colbertv2_tpu_torch.ops.topk import top_k
+    cand, proxy = prefilter.proxy_topk_kernel(q, pooled, lengths,
+                                              n_docs=n_docs, c=c)
+    _, want = top_k(proxy, c)
+    if not torch.equal(cand, want.to(torch.int32)):
+        raise AssertionError(f"{label}: candidates are not top_k of the "
+                             "kernel's own proxies")
+    plain = prefilter.pooled_proxy_topk_reference(q, pooled, lengths,
+                                                  n_docs=n_docs, c=c)
+    qbar = q.sum(dim=1).to(torch.bfloat16).to(torch.float64)
+    p64 = pooled.to(torch.float64)
+    exact = qbar @ p64.T
+    tol = DIM * 2.0**-23 * (qbar.abs() @ p64.abs().T)
+    keep = (torch.arange(pooled.shape[0], device=q.device) < n_docs) & (
+        lengths > 0)
+    err = (proxy.to(torch.float64) - exact).abs()[:, keep]
+    if not bool((err <= tol[:, keep]).all()):
+        raise AssertionError(f"{label}: proxies off the fp64 product by "
+                             f"{float(err.max())}")
+    exact = torch.where(keep[None, :], exact, -1e30)
+    ek = torch.gather(exact, 1, cand.long())
+    ep = torch.gather(exact, 1, plain.long())
+    if not bool(((ek - ep).abs() <= 4 * tol.max()).all()):
+        raise AssertionError(f"{label}: candidates differ from the plain "
+                             "version's beyond ties")
+    return int((cand != plain).sum())
+
+
+def phase_stage_a(device, peaks) -> dict:
+    """Stage A's kernel (csrc/proxy_topk.cu, ``pooled_proxy_topk`` on the
+    card) at the colbertv2.msmarco-open cell's shapes (N = 2,210,456,
+    D = 128, C = 1024, B = 8 and 16): held against its plain version,
+    timed by CUDA events beside its bound (one read of the bf16 table),
+    the plain version and, as the library's yardstick the port never
+    calls, ``torch.topk`` on a ready proxy row; one call profiled by
+    kernel. -> {B: numbers}"""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from hybrid_rag_colbertv2_tpu_torch.ops import prefilter
+    n, c = STAGE_A_N, STAGE_A_C
+    bound_ms = n * DIM * 2 / peaks[1] * 1e3
+    out = {}
+    for b in STAGE_A_BATCHES:
+        q, pooled, lengths = stage_a_inputs(device, n, b, 19 + b)
+        n_docs = n - 1000
+        swaps = stage_a_hold(f"stage A B={b}", q, pooled, lengths, n_docs, c)
+        before = prefilter.pooled_proxy_topk.launches
+
+        def kernel():
+            return prefilter.pooled_proxy_topk(q, pooled, lengths,
+                                               n_docs=n_docs, c=c)
+
+        def plain():
+            return prefilter.pooled_proxy_topk_reference(
+                q, pooled, lengths, n_docs=n_docs, c=c)
+        proxy = prefilter.proxy_topk_kernel(q, pooled, lengths,
+                                            n_docs=n_docs, c=c)[1].clone()
+        times = {"kernel": [], "plain": []}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            times[name].append(cuda_ms(kernel if name == "kernel" else plain,
+                                       50 if name == "kernel" else 10))
+        library_ms = cuda_ms(lambda: torch.topk(proxy, c), 50)
+        launched = prefilter.pooled_proxy_topk.launches - before
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kernel()
+            torch.cuda.synchronize()
+        parts = {}
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and \
+                    e.self_device_time_total > 0:
+                key = next((k for k in STAGE_A_PARTS if k in e.key),
+                           e.key[:60])
+                parts[key] = parts.get(key, 0.0) + \
+                    e.self_device_time_total / 1e3 / 5
+        kernel_ms = min(times["kernel"])
+        out[b] = dict(kernel_ms=times["kernel"], plain_ms=times["plain"],
+                      library_ms=library_ms, bound_ms=bound_ms,
+                      roofline=bound_ms / kernel_ms, swaps_vs_plain=swaps,
+                      launches=launched, parts_ms=parts)
+        log(f"stage A B={b} N={n} C={c}: kernel {times['kernel']} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_ms / kernel_ms:.1%}), plain "
+            f"{times['plain']} ms, torch.topk on a ready row "
+            f"{library_ms:.4f} ms; {swaps} positions differ from the plain "
+            f"version (tied within tolerance); {launched} launches counted")
+        for key, ms_ in sorted(parts.items(), key=lambda kv: -kv[1]):
+            log(f"  {ms_:8.4f} ms/call  {key}")
+        if launched != 1 + 2 * (50 + 2):     # cuda_ms warms up twice
+            raise AssertionError(f"stage A B={b}: {launched} launches "
+                                 "counted")
+        del q, pooled, lengths, proxy
+        torch.cuda.empty_cache()
+    # the bucket sizes of the jina.trec-covid-open cell: one level above
+    # the proxies, against the plain version's sort of a shorter row
+    for n_b in STAGE_A_BUCKETS:
+        q, pooled, lengths = stage_a_inputs(device, n_b, 8, n_b)
+        swaps = stage_a_hold(f"stage A N={n_b}", q, pooled, lengths, n_b, c)
+        k_ms = cuda_ms(lambda: prefilter.pooled_proxy_topk(
+            q, pooled, lengths, n_docs=n_b, c=c), 50)
+        p_ms = cuda_ms(lambda: prefilter.pooled_proxy_topk_reference(
+            q, pooled, lengths, n_docs=n_b, c=c), 50)
+        out[f"N{n_b}"] = dict(kernel_ms=k_ms, plain_ms=p_ms,
+                              swaps_vs_plain=swaps)
+        log(f"stage A B=8 N={n_b} C={c}: kernel {k_ms:.4f} ms, plain "
+            f"{p_ms:.4f} ms; {swaps} positions differ from the plain "
+            "version (tied within tolerance)")
+        if k_ms > p_ms:
+            raise AssertionError(f"stage A N={n_b}: the kernel is slower "
+                                 "than the plain version")
+    return out
+
+
+def profile_calls(label, fn, batches, want, calls: int = 5,
+                  stage_a=None) -> dict:
     """``traced_calls`` until each port kernel's launches per call equal
     ``want`` ({kernel: launches per call}), at most PROFILE_ATTEMPTS
     times; raises if the last attempt still disagrees. Every call
@@ -2173,16 +2329,20 @@ def profile_calls(label, fn, batches, want, calls: int = 5) -> dict:
     route-0 graph once showed 0.4 launches and 183 of its 448 device ops
     per call, and a small bucketed int8-doc graph once none of its 3
     launches per call. A path that really launches other counts
-    disagrees on every attempt and fails."""
+    disagrees on every attempt and fails. ``stage_a``, where given: the
+    launches per call of stage A's kernel (one per bucket of a pruned
+    route)."""
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
         pr = traced_calls(label, fn, batches, calls)
-        if pr["kernels"] == want:
+        if pr["kernels"] == want and stage_a in (None, pr["stage_a"]):
             return pr
-        log(f"profile {label}: launches per call {pr['kernels']} over "
-            f"{pr['device_ops']:.1f} device ops per call, want {want}, "
-            f"attempt {attempt} of {PROFILE_ATTEMPTS}")
+        log(f"profile {label}: launches per call {pr['kernels']}, stage A "
+            f"{pr['stage_a']}, over {pr['device_ops']:.1f} device ops per "
+            f"call, want {want}, stage A {stage_a}, attempt {attempt} of "
+            f"{PROFILE_ATTEMPTS}")
     raise AssertionError(f"{label}: kernel launches per call "
-                         f"{pr['kernels']}, want {want}")
+                         f"{pr['kernels']}, stage A {pr['stage_a']}, want "
+                         f"{want}, stage A {stage_a}")
 
 
 def traced_calls(label, fn, batches, calls: int) -> dict:
@@ -2227,13 +2387,16 @@ def traced_calls(label, fn, batches, calls: int) -> dict:
     kernels = {k: sum(e.count for e in events if e.device_type == cuda
                       and re.search(rf"\b{sym}\b", e.key)) / calls
                for k, sym in KERNEL_SYMBOL.items()}
+    stage_a = sum(e.count for e in events if e.device_type == cuda
+                  and re.search(rf"\b{STAGE_A_SYMBOL}\b", e.key)) / calls
     log(f"profile {label}: traced wall {wall_ms:.3f} ms/call, device "
         f"{busy:.3f} ms/call over a device span of {span:.3f} ms/call, "
         f"{ops:.0f} device ops/call, {host:.0f} host-side launches/call")
     for ms_, n, key in rows[:8]:
         log(f"  {ms_:8.3f} ms  x{n:<6.1f} {key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=busy, span_ms=span,
-                device_ops=ops, host_launches=host, kernels=kernels)
+                device_ops=ops, host_launches=host, kernels=kernels,
+                stage_a=stage_a)
 
 
 def check_small_cascade(device, layouts) -> dict:
@@ -2716,7 +2879,9 @@ def phase_bucketed_100k(device, encoder, lex, corpus, queries,
                         if p == 0 and k == "maxsim_int8" else 0.0)
                     for k in KERNELS}
             pr = profile_calls(f"{name} 100k dense_prefilter={p} {how}", fn,
-                               batches, want)
+                               batches, want, stage_a=float(
+                                   (nb if name == "bucketed" else 1)
+                                   if p != 0 else 0))
             if how == "graph" and pr["host_launches"] != 1.0:
                 raise AssertionError(f"{name} route {p}: "
                                      f"{pr['host_launches']} host-side "
@@ -3039,7 +3204,8 @@ def phase_checkpoint_app(device, ckpt: Path) -> dict:
             want = {k: (float(nb) if label == "0" and k == "maxsim_int8"
                         else 0.0) for k in KERNELS}
             pr = profile_calls(f"checkpoint app bucketed route {label}",
-                               a.query_batch, batches, want)
+                               a.query_batch, batches, want,
+                               stage_a=float(nb if label != "0" else 0))
             cell.update(device_ms=pr["device_ms"],
                         busy=pr["device_ms"] / cell["p50_ms"],
                         host_launches=pr["host_launches"])

@@ -7,7 +7,9 @@ root (listed in .gitignore), keyed by a hash of the source, of every
 ``csrc/`` header it includes (transitively), and of the flags, so a
 checkout builds everything it needs from its own sources and a changed
 source or shared header is never served a stale library. A failed build
-raises; nothing falls back.
+raises; nothing falls back. ``prebuild`` starts a build in the background
+where set-up knows a kernel will run, so the compile overlaps the rest of
+the set-up; the first ``load`` waits for it.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 _lock = threading.Lock()
 _loaded: Dict[Tuple[Path, str], ctypes.CDLL] = {}
+_pending: Dict[Tuple[Path, str], threading.Thread] = {}
 
 
 def _nvcc() -> str:
@@ -104,9 +107,32 @@ def build_many(names: Sequence[str], csrc: Path = CSRC) -> Dict[str, Path]:
     return outs
 
 
+def prebuild(name: str, csrc: Path = CSRC) -> None:
+    """Start building kernel ``name`` in a background thread, unless its
+    library is loaded, built or being built. A failure is left for
+    ``load`` to raise: it builds again in the foreground."""
+    key = (csrc, name)
+    with _lock:
+        if key in _loaded or key in _pending or \
+                library_path(name, csrc).exists():
+            return
+
+        def run() -> None:
+            try:
+                build_many([name], csrc)
+            except (OSError, RuntimeError):
+                pass
+        _pending[key] = threading.Thread(target=run, daemon=True,
+                                         name=f"build {name}")
+        _pending[key].start()
+
+
 def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
     """The loaded library of kernel ``name`` (from ``csrc``), built if
-    needed."""
+    needed (after a ``prebuild`` of it has ended)."""
+    pending = _pending.get((csrc, name))
+    if pending is not None:
+        pending.join()
     with _lock:
         lib = _loaded.get((csrc, name))
         if lib is None:

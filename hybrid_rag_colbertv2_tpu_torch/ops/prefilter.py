@@ -9,15 +9,22 @@ With C >= N the result equals the full scan. Candidate selection is
 always exact top-k (``jax.lax.approx_max_k`` has no torch counterpart).
 Every flat layout is served: int8 (row scales), int8-doc (doc scales),
 int4-doc (nibble-packed pair-rows, group scales) and the float dtypes.
+
+Stage A on the card is one hand-written kernel, csrc/proxy_topk.cu (the
+bf16 product on the tensor cores and an exact top-C through the maxima of
+16 and 256 docs); its plain version, ``pooled_proxy_topk_reference``,
+runs on the CPU.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Tuple
 
 import torch
 
-from .maxsim import NEG_INF
+from . import _build
+from .maxsim import NEG_INF, _launch, _on_card
 from .quant import doc_row_scales, unpack_int4, unpack_int4_pairs
 from .topk import top_k
 
@@ -65,7 +72,10 @@ def pooled_doc_embeddings(
     ``doc_lengths``, in the JAX package's order of operations
     (``e * (s * valid)``, then the sum over L) so the bf16 proxies are
     bit-equal. Blocked over docs so a large index never materializes in
-    fp32."""
+    fp32. On the card, the build of stage A's kernel starts here, in the
+    background."""
+    if emb_flat.device.type == "cuda":
+        _build.prebuild("proxy_topk")
     n_pad = doc_lengths.shape[0]
     d = emb_flat.shape[-1]
     embs = emb_flat.reshape(n_pad, doc_len // 2 if packed_int4 else doc_len,
@@ -95,7 +105,7 @@ def pooled_doc_embeddings(
     return (mean / torch.clamp(norm, min=1e-9)).to(torch.bfloat16)
 
 
-def pooled_proxy_topk(
+def pooled_proxy_topk_reference(
     queries: torch.Tensor,              # (B, Lq, D) — padded rows zero
     pooled: torch.Tensor,               # (N_pad, D) bf16
     doc_lengths: torch.Tensor,          # (N_pad,)
@@ -104,9 +114,10 @@ def pooled_proxy_topk(
     c: int,
     approx_recall: float = 0.95,        # accepted for parity; exact top-k
 ) -> torch.Tensor:                      # (B, C) candidate ids int32
-    """Stage A: pooled-cosine proxy over the whole corpus + top-C. The
-    bf16 operands are exact in fp32, so the fp32 product equals the JAX
-    bf16 dot with fp32 accumulation up to summation order."""
+    """Stage A, the plain version: pooled-cosine proxy over the whole
+    corpus + top-C. The bf16 operands are exact in fp32, so the fp32
+    product equals the JAX bf16 dot with fp32 accumulation up to
+    summation order."""
     n_pad = doc_lengths.shape[0]
     qbar = queries.to(torch.float32).sum(dim=1)                  # (B, D)
     proxy = qbar.to(torch.bfloat16).to(torch.float32) @ \
@@ -116,6 +127,98 @@ def pooled_proxy_topk(
     proxy = torch.where(keep, proxy, NEG_INF)
     _, cand = top_k(proxy, c)
     return cand.to(torch.int32)
+
+
+def _proxy_topk_launch(
+    queries: torch.Tensor,              # (B, Lq, D) on the card
+    pooled: torch.Tensor,               # (N_pad, D) bf16
+    doc_lengths: torch.Tensor,          # (N_pad,)
+    *,
+    n_docs: int,
+    c: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:  # cand (B, C) int32, workspace
+    """Launch csrc/proxy_topk.cu; the query sums are rounded to bf16 as
+    the plain version rounds them. The workspace begins with the masked
+    proxies, tile-major: doc 16 i + j of query b at [i, b, j]."""
+    if queries.dim() != 3 or pooled.dim() != 2:
+        raise ValueError("queries must be (B, Lq, D) and pooled (N_pad, D)")
+    b, _, d = queries.shape
+    n_pad = pooled.shape[0]
+    if pooled.dtype != torch.bfloat16 or pooled.shape[1] != d:
+        raise ValueError(f"pooled must be bfloat16 (N_pad, {d}), got "
+                         f"{pooled.dtype} {tuple(pooled.shape)}")
+    if tuple(doc_lengths.shape) != (n_pad,):
+        raise ValueError(f"doc_lengths must be ({n_pad},), got "
+                         f"{tuple(doc_lengths.shape)}")
+    for name, t in (("queries", queries), ("doc_lengths", doc_lengths)):
+        if t.device != pooled.device:
+            raise ValueError(f"{name} is on {t.device}, pooled on "
+                             f"{pooled.device}")
+    if not pooled.is_contiguous() or pooled.data_ptr() % 16:
+        raise ValueError("pooled must be contiguous and 16-byte aligned")
+    if d % 8 or not 8 <= d <= 256:
+        raise ValueError(f"the proxy_topk kernel takes D % 8 == 0, "
+                         f"D <= 256; D={d}")
+    if not 0 < c <= n_pad or not 0 <= n_docs <= n_pad:
+        raise ValueError(f"the proxy_topk kernel takes 0 < C <= N_pad and "
+                         f"n_docs <= N_pad; C={c}, n_docs={n_docs}, "
+                         f"N_pad={n_pad}")
+    if b * n_pad >= 2**31 or n_pad >= 2**31 // 16:
+        raise ValueError("corpus too large for 32-bit kernel indexing")
+    qbar = queries.to(torch.float32).sum(dim=1).to(torch.bfloat16)
+    lengths = doc_lengths.to(torch.int32).contiguous()
+    lib = _build.load("proxy_topk")
+    lib.proxy_topk_workspace.restype = ctypes.c_size_t
+    lib.proxy_topk_workspace.argtypes = [ctypes.c_int] * 3
+    ws = torch.empty((max(lib.proxy_topk_workspace(b, n_pad, c), 1),),
+                     dtype=torch.uint8, device=pooled.device)
+    cand = torch.empty((b, c), dtype=torch.int32, device=pooled.device)
+    _launch("proxy_topk", "proxy_topk_launch", pooled.device,
+            (qbar.contiguous(), pooled, lengths, ws, cand),
+            (b, d, n_pad, n_docs, c))
+    pooled_proxy_topk.launches += 1
+    return cand, ws
+
+
+def proxy_topk_kernel(
+    queries: torch.Tensor,              # (B, Lq, D) on the card
+    pooled: torch.Tensor,               # (N_pad, D) bf16
+    doc_lengths: torch.Tensor,          # (N_pad,)
+    *,
+    n_docs: int,
+    c: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:  # cand (B, C) int32, proxy (B, N_pad) f32
+    """Stage A on the card, with the masked proxies the candidates were
+    selected from (a copy out of the kernel's workspace, for tests)."""
+    cand, ws = _proxy_topk_launch(queries, pooled, doc_lengths,
+                                  n_docs=n_docs, c=c)
+    b, n_pad = queries.shape[0], pooled.shape[0]
+    tiles = -(-n_pad // 16)
+    proxy = ws[:tiles * b * 16 * 4].view(torch.float32).view(tiles, b, 16)
+    return cand, proxy.permute(1, 0, 2).reshape(b, tiles * 16)[:, :n_pad]
+
+
+def pooled_proxy_topk(
+    queries: torch.Tensor,              # (B, Lq, D) — padded rows zero
+    pooled: torch.Tensor,               # (N_pad, D) bf16
+    doc_lengths: torch.Tensor,          # (N_pad,)
+    *,
+    n_docs: int,
+    c: int,
+    approx_recall: float = 0.95,        # accepted for parity; exact top-k
+) -> torch.Tensor:                      # (B, C) candidate ids int32
+    """Stage A: pooled-cosine proxy over the whole corpus + the exact
+    top-C, largest first, ties by ascending doc id. CUDA tensors launch
+    csrc/proxy_topk.cu; CPU tensors run the plain version."""
+    if not _on_card(pooled):
+        return pooled_proxy_topk_reference(
+            queries, pooled, doc_lengths, n_docs=n_docs, c=c,
+            approx_recall=approx_recall)
+    return _proxy_topk_launch(queries, pooled, doc_lengths, n_docs=n_docs,
+                              c=c)[0]
+
+
+pooled_proxy_topk.launches = 0
 
 
 def exact_maxsim_on_candidates(

@@ -52,3 +52,23 @@ def test_copy_of_csrc_shares_the_key_until_edited(tmp_path):
     assert _build.library_path(name, tmp_path) == _build.library_path(name)
     (tmp_path / "sm90.cuh").write_text("// another header\n")
     assert _build.library_path(name, tmp_path) != _build.library_path(name)
+
+
+def test_stage_a_kernel_source_stands_alone():
+    """``proxy_topk.cu`` (stage A) includes no ``csrc/`` header: its key
+    is its own source and the flags."""
+    names = [p.name for p in _build._sources("proxy_topk", _build.CSRC)]
+    assert names == ["proxy_topk.cu"]
+
+
+def test_prebuild_leaves_a_failed_build_to_load(tmp_path):
+    """A background build that fails raises nothing; ``load`` waits for
+    it, then builds in the foreground and raises."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "broken.cu").write_text("this is not CUDA\n")
+    _build.prebuild("broken", csrc)
+    _build.prebuild("broken", csrc)        # one build at a time
+    with pytest.raises(RuntimeError):
+        _build.load("broken", csrc)
+    assert not _build._pending[(csrc, "broken")].is_alive()
