@@ -1,8 +1,10 @@
 """The control of the check: the plain reference put in the program's
 place, computed one precision step below the configuration's, judged by
 the same comparison as a run. ``--lower matmul`` (the default) rounds
-every matmul input to TF32, one step below the encoder's and the
-rerank's fp32; ``--lower dense`` computes the dense scoring alone (the
+the encoder's matmul inputs one step below the configuration's
+``encoder_dtype`` (float32 -> TF32, bfloat16 -> float8 e4m3 with one
+scale per tensor) and stage B's and the rerank's to TF32, one step below
+their fp32; ``--lower dense`` computes the dense scoring alone (the
 scan's query, stage A's query sum and the pooled proxies) one step
 below the configuration's ``compute_dtype`` (bf16 -> fp8 e4m3). The
 readings of the matmul control set the upper end of each limit; the
@@ -50,8 +52,9 @@ def control_numbers(name, seed, device, sample=None, bench=None, cell=None,
     ref = runner.make_reference(cell, arch, model, inputs, seed, device)
     q, ids, scores = ref.answers(texts, terms, k)
     if lower == "matmul":
-        ctl = runner.make_reference(cell, arch, model, inputs, seed, device,
-                                    "tf32")
+        ctl = runner.make_reference(
+            cell, arch, model, inputs, seed, device, "tf32",
+            encoder=reference.LOWER_MATMUL[arch["encoder_dtype"]])
     else:
         ctl = runner.make_reference(
             cell, arch, model, inputs, seed, device,

@@ -1,7 +1,8 @@
 """What the per-layer metric files read. ``ctx`` holds the measured
 window's spans (``rec``, ``calls``), the traced window's reduction
 (``trace``, in ``--trace 1`` runs), ``encoder_ms``, the cell, its
-configuration, the index's shape and the card's peaks. Each function
+configuration and the configuration's ``.py`` (``model``), the index's
+shape and the card's peaks. Each function
 returns None where it finds nothing to read."""
 
 from __future__ import annotations
@@ -77,6 +78,7 @@ def step_mfu_pct(ctx: Dict) -> Optional[float]:
         return None
     lq = ctx["arch"]["query_maxlen"]
     flops = sum(yardstick.call_flops(ctx["arch"], ctx["route"], ctx["index"],
-                                     c["n_real"], lq) for c in calls)
+                                     c["n_real"], lq, ctx["model"])
+                for c in calls)
     secs = sum(c["t1"] - c["t0"] for c in calls)
     return 100.0 * flops / secs / peaks["bf16_flops"]

@@ -10,10 +10,14 @@ Precision: fp32 everywhere the configuration says float32 (the encoder,
 stage B, the rerank). The dense scoring's inputs (the full scan's query,
 stage A's query sum and the pooled proxies) are rounded to the
 configuration file's ``compute_dtype`` (fp32 accumulation), read there.
-``Precision("tf32")`` rounds every matmul input to TF32 (10 explicit
-mantissa bits): the control, one step below the configuration's fp32
-with TF32 off. ``LOWER_DENSE`` names the dense control's dtype, one step
-below the configuration's ``compute_dtype``.
+The controls round matmul inputs one precision step down:
+``Precision("tf32")`` to TF32 (10 explicit mantissa bits), one step
+below fp32 with TF32 off; ``Precision("e4m3")`` to float8 e4m3 (3
+mantissa bits) with one scale per tensor, as an fp8 product takes its
+inputs, one step below bfloat16. ``LOWER_MATMUL`` names the encoder's
+step below the configuration's ``encoder_dtype`` (the reference's
+encoder is fp32 whatever that says); ``LOWER_DENSE`` the dense control's
+dtype below its ``compute_dtype``.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ from . import gen
 NEG = -1e30
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float8_e4m3fn": torch.float8_e4m3fn}
-# the dense control: one precision step below the stated compute dtype
+# the controls: one precision step below the stated encoder dtype (a
+# Precision) and below the stated dense compute dtype (a DTYPES key)
+LOWER_MATMUL = {"float32": "tf32", "bfloat16": "e4m3"}
 LOWER_DENSE = {"bfloat16": "float8_e4m3fn"}
 
 
@@ -53,17 +59,28 @@ def round_tf32(x: torch.Tensor) -> torch.Tensor:
     return r.view(torch.float32)
 
 
+def round_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> float8 e4m3 as a scaled fp8 product takes its inputs: the
+    tensor scaled so that its largest magnitude is e4m3's largest (448),
+    rounded to the nearest e4m3 value (ties to even), scaled back, still
+    stored as fp32."""
+    scale = 448.0 / x.abs().amax().clamp_min(1e-30)
+    return rounded(x * scale, DTYPES["float8_e4m3fn"]) / scale
+
+
 class Precision:
-    """The rounding applied to matmul inputs: "fp32" (none) or "tf32"."""
+    """The rounding applied to matmul inputs: "fp32" (none), "tf32" or
+    "e4m3"."""
+
+    ROUND = {"fp32": lambda x: x, "tf32": round_tf32, "e4m3": round_e4m3}
 
     def __init__(self, name: str = "fp32"):
-        if name not in ("fp32", "tf32"):
+        if name not in self.ROUND:
             raise ValueError(f"unknown precision {name!r}")
         self.name = name
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(torch.float32)
-        return round_tf32(x) if self.name == "tf32" else x
+        return self.ROUND[self.name](x.to(torch.float32))
 
 
 # ---------------------------------------------------------------------
@@ -297,14 +314,19 @@ class Reference:
     def __init__(self, model, arch: Dict, weights: Dict[str, torch.Tensor],
                  subs: List[SubIndex], n_docs: int, lexical: Dict,
                  retrieval: Dict, prec: Optional[Precision] = None,
-                 dense: Optional[str] = None):
+                 dense: Optional[str] = None,
+                 encoder_prec: Optional[Precision] = None):
         """``model``: the configuration's plain reference module (its
-        ``encode_queries``), found beside its file. ``dense``: the dense
-        scoring's dtype, else the configuration's ``compute_dtype``."""
+        ``encode_queries``), found beside its file. ``prec``: the
+        rounding of stage B's and the rerank's matmul inputs;
+        ``encoder_prec``: of the encoder's, else ``prec``. ``dense``: the
+        dense scoring's dtype, else the configuration's
+        ``compute_dtype``."""
         self.model = model
         self.arch, self.weights, self.subs = arch, weights, subs
         self.n_docs, self.lex, self.ret = n_docs, lexical, retrieval
         self.prec = prec or Precision("fp32")
+        self.encoder_prec = encoder_prec or self.prec
         self.dense = DTYPES[dense or arch["compute_dtype"]]
         # global id -> (sub-index, local row)
         dev = subs[0].rows.device
@@ -321,7 +343,7 @@ class Reference:
         dev = self.subs[0].rows.device
         with torch.no_grad():
             return self.model.encode_queries(self.weights, self.arch,
-                                             ids.to(dev), self.prec)
+                                             ids.to(dev), self.encoder_prec)
 
     def exact_scores(self, q: torch.Tensor, ids: torch.Tensor
                      ) -> torch.Tensor:

@@ -21,6 +21,7 @@ WARM_POOL = 512         # queries kept apart for warm-up
 CLOSED_POOL = 4096      # queries a closed loop cycles through
 TRACE_SECONDS = 2.0     # the traced window, after the measured one
 TRACE_ATTEMPTS = 3      # traced windows taken while records are lost
+WARM_LOAD_SECONDS = 1.0  # an open cell's own load before its window
 
 
 def card_info(device) -> Dict:
@@ -29,15 +30,16 @@ def card_info(device) -> Dict:
     if dev.type != "cuda":
         return {"name": "cpu", "power_limit": "n/a"}
     name = torch.cuda.get_device_name(dev)
-    limit = "not read"
+    limit = bus = "not read"
     try:
         out = subprocess.run(
-            ["nvidia-smi", "--query-gpu=power.limit",
+            ["nvidia-smi", "--query-gpu=power.limit,pci.bus_id",
              "--format=csv,noheader", f"--id={dev.index or 0}"],
             capture_output=True, text=True, timeout=30)
-        limit = out.stdout.strip() or limit
-    except (OSError, subprocess.SubprocessError):
+        limit, bus = [x.strip() for x in out.stdout.split(",")]
+    except (OSError, subprocess.SubprocessError, ValueError):
         pass
+    _log(host.numa_line(bus))
     return {"name": name, "power_limit": limit}
 
 
@@ -53,6 +55,17 @@ def calls_line(calls) -> str:
         out.append(f"B={b}: {len(mine)} x {call:.2f} ms ({stage:.2f} in "
                    "the graph)")
     return "calls " + ", ".join(out)
+
+
+def blocks_line(lat: np.ndarray, due: np.ndarray, t0: float,
+                seconds: float, n: int = 5) -> str:
+    """p50 / p95 of the queries due in each of ``n`` equal parts of the
+    window (on stderr: a slow start or a drift shows against a run that
+    is slow throughout)."""
+    part = np.minimum(((due - t0) / seconds * n).astype(int), n - 1)
+    return "window by parts (p50 / p95 ms): " + ", ".join(
+        f"{percentile(lat[part == i], 50):.2f} / "
+        f"{percentile(lat[part == i], 95):.2f}" for i in range(n))
 
 
 def percentile(x: np.ndarray, q: float) -> float:
@@ -101,6 +114,9 @@ def setup(name: str, seed: int, device, n_queries, t_start: float,
     system.warm(inputs.texts[:WARM_POOL])
     mark(f"warm-up of {len(system.shapes())} shapes, "
          f"{system.captures()} captures")
+    if cell["load"]["loop"] == "open":
+        n = warm_load(system, inputs.texts[:WARM_POOL], seed)
+        mark(f"warm load of {n} queries")
     _log(f"set-up {host.line(host.since(h0))}")
     # the set-up's objects (the harness's inputs and query pools, the
     # program's vocabulary) leave the collector's generations, so a full
@@ -108,6 +124,21 @@ def setup(name: str, seed: int, device, n_queries, t_start: float,
     gc.collect()
     gc.freeze()
     return cell, arch, model, inputs, system
+
+
+def warm_load(system, pool, seed: int) -> int:
+    """Up to ``WARM_LOAD_SECONDS`` of the cell's own load, unmeasured:
+    queries of the warm-up pool sent once more through the served path
+    at the cell's rate (arrivals drawn from ``seed``), so that the window
+    opens on a batcher, dispatch threads and client threads that have
+    served this load, not on their first bursts. -> queries sent."""
+    rate = system.cell["load"]["rate_qps"]
+    texts = pool[:max(1, min(len(pool), round(rate * WARM_LOAD_SECONDS)))]
+    offs = gen.arrival_offsets(len(texts), len(texts) / rate, seed, "warm")
+    serve.open_loop(system, texts, offs,
+                    serve.Recorder(texts, system.cell["queries"]["top_k"]))
+    system.rec = None
+    return len(texts)
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool,
@@ -146,9 +177,9 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         texts = pool[:n_win]
         rec = serve.Recorder(texts, top_k)
         offs = gen.arrival_offsets(n_win, seconds, seed)
+        h0 = host.counters()
         t_win = time.perf_counter() + 0.01
         setup_s = t_win - t_start
-        h0 = host.counters()
         info = serve.open_loop(system, texts, offs, rec, t0=t_win)
         lat = np.where(rec.ok, rec.done - rec.due, math.inf) * 1e3
         e2e = {"query_p50_ms": percentile(lat, 50),
@@ -159,6 +190,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
              f"{info['late_s'] * 1e3:.3f} ms, {len(rec.calls)} calls, "
              f"{failed} failed; {host.line(host.since(h0))}")
         _log(calls_line(rec.calls))
+        _log(blocks_line(lat, rec.due, t_win, seconds))
     else:
         texts = pool[:CLOSED_POOL]
         rec = serve.Recorder(texts, top_k)
@@ -179,7 +211,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                            "the measured window: a shape was not warmed up")
 
     # -- the traced window ------------------------------------------------
-    ctx = dict(cell=cell, arch=arch, rec=rec, calls=rec.calls,
+    ctx = dict(cell=cell, arch=arch, model=model, rec=rec, calls=rec.calls,
                seconds=seconds, peaks=yardstick.peaks_for(card["name"]),
                card=card, index=index_shape(inputs, cell),
                route=cell["retrieval"])
@@ -234,17 +266,19 @@ def check(ref, texts, terms, served_ids, served_scores) -> Dict[str, float]:
 
 
 def make_reference(cell, arch, model, inputs, seed, dev, precision="fp32",
-                   dense=None) -> reference.Reference:
+                   dense=None, encoder=None) -> reference.Reference:
     """The reference over the cell's inputs: the weights and the lexical
     pairs made again from ``seed``, the index rows as generated.
-    ``precision`` / ``dense`` lower it for a control."""
+    ``precision`` (the matmuls), ``encoder`` (the encoder's matmuls, else
+    ``precision``) and ``dense`` lower it for a control."""
     subs = [reference.SubIndex(s["rows"], s["scales"], s["lengths"],
                                s["doc_len"], s["gid"]) for s in inputs.subs]
     return reference.Reference(
         model, arch, gen.make_weights(model.param_specs(arch), seed, dev),
         subs, inputs.n_docs,
         serve.lexical_pairs(inputs, cell, seed), cell["retrieval"],
-        reference.Precision(precision), dense)
+        reference.Precision(precision), dense,
+        reference.Precision(encoder or precision))
 
 
 def index_shape(inputs, cell) -> Dict:

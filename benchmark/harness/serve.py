@@ -12,6 +12,8 @@ start of the call that carries it, and its answer.
 
 from __future__ import annotations
 
+import dataclasses
+import itertools
 import sys
 import threading
 import time
@@ -188,8 +190,23 @@ def rag_config(P, cell: Dict, arch: Dict):
         query_max_tokens=arch["query_maxlen"], mesh=mesh)
 
 
+# the activations of the port's encoder, by the file's ``encoder_dtype``
+ENCODER_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def encoder_config(P, arch: Dict):
-    return P["ColBERTConfig"](
+    """The port's ``ColBERTConfig`` from a configuration file: the keys
+    every file states, mapped to the port's names; the activations in
+    the file's ``encoder_dtype``; then every key of the file's optional
+    ``"encoder"`` object, by the port's own field name (a JSON list as a
+    tuple), for what a block needs beyond the mapped keys. A key there
+    that ``ColBERTConfig`` lacks, or that a mapped key already sets,
+    stops set-up with its name."""
+    dtype = arch["encoder_dtype"]
+    if dtype not in ENCODER_DTYPES:
+        raise ValueError(f"encoder_dtype {dtype!r}: the port's encoder runs "
+                         f"in {' or '.join(ENCODER_DTYPES)}")
+    kw = dict(
         vocab_size=arch["vocab_size"], hidden_size=arch["hidden_size"],
         num_layers=arch["num_hidden_layers"],
         num_heads=arch["num_attention_heads"],
@@ -201,7 +218,19 @@ def encoder_config(P, arch: Dict):
         rope_base=float(arch.get("rotary_emb_base", 10000.0)),
         pad_token_id=arch["pad_token_id"],
         query_max_tokens=arch["query_maxlen"],
-        doc_max_tokens=arch["doc_maxlen"], dtype=torch.float32)
+        doc_max_tokens=arch["doc_maxlen"], dtype=ENCODER_DTYPES[dtype])
+    extra = arch.get("encoder", {})
+    fields = {f.name for f in dataclasses.fields(P["ColBERTConfig"])}
+    for key in sorted(extra):
+        if key in kw:
+            raise ValueError(f"encoder.{key}: a mapped key of the "
+                             "configuration file sets it already")
+        if key not in fields:
+            raise ValueError(f"encoder.{key}: the port's ColBERTConfig has "
+                             "no such field")
+    kw.update((k, tuple(v) if isinstance(v, list) else v)
+              for k, v in extra.items())
+    return P["ColBERTConfig"](**kw)
 
 
 class System:
@@ -300,8 +329,9 @@ class System:
         return [(b, w) for b in pads for w in widths]
 
     def warm(self, pool: Sequence[str]) -> None:
-        """One call of every reachable shape (each captures its graph);
-        the batches are kept in ``warm_batches``."""
+        """One call of every reachable shape (each captures its graph),
+        then, for an open loop, every client thread started; the batches
+        are kept in ``warm_batches``."""
         top_k = self.cell["queries"]["top_k"]
         r = self.cell["retrieval"]
         self.warm_batches = []
@@ -317,6 +347,18 @@ class System:
             batch = [top[0]] + [q for q in fit if q != top[0]][:b - 1]
             self.call(batch, top_k, b)
             self.warm_batches.append(batch)
+        if self.batcher is not None:
+            self.start_clients()
+
+    def start_clients(self) -> None:
+        """Every client thread started before the window: one task per
+        worker, each held at a barrier until all of them run (an executor
+        starts a thread only at a submit that finds none idle, so it would
+        otherwise start them inside the window, at its first bursts)."""
+        gate = threading.Barrier(self.cell["load"]["clients"])
+        for f in [self.clients.submit(gate.wait, 60.0)
+                  for _ in range(gate.parties)]:
+            f.result()
 
     def captures(self) -> int:
         return self.P["cascade"].FusedCascade.captures
@@ -380,32 +422,39 @@ def open_loop(system: System, texts: Sequence[str], offsets: np.ndarray,
               rec: Recorder, t0: Optional[float] = None) -> Dict:
     """Send ``texts[i]`` through ``MicroBatcher.submit`` at ``t0 +
     offsets[i]``, whatever came back before; each query is timed from its
-    due time. Waits for every answer. -> t0 and the generator's worst
-    lateness (s)."""
+    due time. The cell's clients share the schedule: a free client takes
+    the next query in due order and sends it when it is due, so a query
+    waits for a client only when every client is waiting for an answer.
+    No thread hands queries to the clients and nothing is kept per query
+    but the recorder's arrays. Waits for every answer. -> t0 and the
+    worst lateness (s) of a send behind its due time."""
     system.rec = rec
     top_k = system.cell["queries"]["top_k"]
     t0 = time.perf_counter() if t0 is None else t0
-    futures, late = [], 0.0
+    rec.due[:] = t0 + np.asarray(offsets, np.float64)
+    due = rec.due.tolist()
+    order = itertools.count()       # next() on it is atomic under the GIL
 
-    def one(i: int) -> None:
-        try:
-            ids, scores = system.batcher.submit(texts[i], top_k)
-            rec.answered(i, time.perf_counter(), ids, scores)
-        except Exception as e:      # a failed query counts as missing
-            print(f"query {i} failed: {type(e).__name__}: {e}",
-                  file=sys.stderr)
+    def client() -> float:
+        worst = 0.0
+        for i in order:
+            if i >= len(due):
+                return worst
+            wait = due[i] - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            worst = max(worst, time.perf_counter() - due[i])
+            try:
+                ids, scores = system.batcher.submit(texts[i], top_k)
+                rec.answered(i, time.perf_counter(), ids, scores)
+            except Exception as e:      # a failed query counts as missing
+                print(f"query {i} failed: {type(e).__name__}: {e}",
+                      file=sys.stderr)
+        return worst
 
-    for i, off in enumerate(offsets):
-        due = t0 + off
-        wait = due - time.perf_counter()
-        if wait > 0:
-            time.sleep(wait)
-        late = max(late, time.perf_counter() - due)
-        rec.due[i] = due
-        futures.append(system.clients.submit(one, i))
-    for f in futures:
-        f.result()
-    return dict(late_s=late, t0=t0)
+    clients = [system.clients.submit(client)
+               for _ in range(system.cell["load"]["clients"])]
+    return dict(late_s=max(f.result() for f in clients), t0=t0)
 
 
 def closed_loop(system: System, texts: Sequence[str], seconds: float,

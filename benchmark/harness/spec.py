@@ -61,10 +61,13 @@ def load_config(bench: Dict, name: str, root: Path = ROOT) -> Dict:
     return cfg
 
 
-def load_model(bench: Dict, name: str, root: Path = ROOT):
-    """The configuration's plain reference, the ``.py`` beside its file:
-    ``param_specs(arch)`` and ``encode_queries(weights, arch, ids,
-    prec)``."""
+def load_model(bench: Dict, name: str, root: Optional[Path] = None):
+    """The configuration's plain reference, the ``.py`` beside its file
+    (under ``root``, else the checkout's root): ``param_specs(arch)`` and
+    ``encode_queries(weights, arch, ids, prec)``, and optionally
+    ``encoder_flops(arch, batch, seq)``, the encoder's FLOP count where
+    the block is not the one ``yardstick.encoder_flops`` counts."""
+    root = ROOT if root is None else root
     path = (root / config_entry(bench, name)["file"]).with_suffix(".py")
     return _load_module("bench_model_" + re.sub(r"\W", "_", name), path)
 

@@ -74,14 +74,18 @@ def roofline_bound_s(flops: float, nbytes: float, peaks: Dict[str, float]
 
 
 def call_flops(arch: Dict, route: Dict, index: Dict, batch: int,
-               lq: int) -> float:
+               lq: int, model=None) -> float:
     """FLOPs of one ``retrieve_batch`` call for ``batch`` real queries:
     the encoder, then per sub-index (one flat index, or each bucket)
     stage A and stage B on the pruned route or the full scan on route 0,
     then the rerank of the fused candidates. ``index`` holds ``dim``,
-    ``k_fuse`` and ``subs``: [{"n_pad", "doc_len", "valid_rows"}]."""
+    ``k_fuse`` and ``subs``: [{"n_pad", "doc_len", "valid_rows"}].
+    ``model``, the configuration's own ``.py``, counts the encoder with
+    its ``encoder_flops(arch, batch, seq)`` where it defines one (a block
+    other than BERT's); else ``encoder_flops`` above does."""
     dim = index["dim"]
-    total = encoder_flops(arch, batch, lq)
+    count = getattr(model, "encoder_flops", encoder_flops)
+    total = float(count(arch, batch, lq))
     for sub in index["subs"]:
         if route["dense_prefilter"] > 0:
             c = min(-(-route["dense_prefilter"] // 128) * 128, sub["n_pad"])

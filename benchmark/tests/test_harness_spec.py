@@ -2,13 +2,16 @@
 new configuration, cell or metric file is found by name with no file
 edited."""
 
+import dataclasses
 import json
 import shutil
+import time
 
 import pytest
-from conftest import BENCH, ROOT
+import torch
+from conftest import BENCH, ROOT, small
 
-from harness import spec
+from harness import gen, readers, runner, serve, spec, yardstick
 
 BENCHMARK = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAMES = ([c["name"] for c in BENCHMARK["configs"]]
@@ -159,3 +162,164 @@ def test_cell_file_must_agree_with_its_entry(tmp_path):
 def test_bad_names_are_refused(bad):
     with pytest.raises(ValueError):
         spec.check_name(bad)
+
+
+# The port's ColBERTConfig of each configuration, pinned from the harness
+# as it stood before a file's encoder_dtype and "encoder" object were
+# read: both files state float32 and bring no "encoder" object.
+ENCODER_CONFIGS = {
+    "colbertv2.0": dict(
+        vocab_size=30522, hidden_size=768, num_layers=12, num_heads=12,
+        intermediate_size=3072, max_position_embeddings=512,
+        type_vocab_size=2, layer_norm_eps=1e-12, colbert_dim=128,
+        position_embedding="learned", rope_base=10000.0,
+        rope_interleaved=False, pad_token_id=0, query_max_tokens=32,
+        doc_max_tokens=128, dtype=torch.float32, lexical_anchor=0.0),
+    "jina-colbert-v2": dict(
+        vocab_size=250002, hidden_size=1024, num_layers=24, num_heads=16,
+        intermediate_size=4096, max_position_embeddings=8194,
+        type_vocab_size=1, layer_norm_eps=1e-05, colbert_dim=128,
+        position_embedding="rope", rope_base=10000.0,
+        rope_interleaved=False, pad_token_id=1, query_max_tokens=32,
+        doc_max_tokens=256, dtype=torch.float32, lexical_anchor=0.0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENCODER_CONFIGS))
+def test_encoder_config_is_pinned(name):
+    arch = spec.load_config(BENCHMARK, name, ROOT)
+    assert arch["encoder_dtype"] == "float32" and "encoder" not in arch
+    got = dataclasses.asdict(serve.encoder_config(serve.port(), arch))
+    assert got == ENCODER_CONFIGS[name]
+    assert all(type(got[k]) is type(v)
+               for k, v in ENCODER_CONFIGS[name].items())
+
+
+def small_encoder(arch):
+    P = serve.port()
+    model = spec.load_model(BENCHMARK, "jina-colbert-v2", ROOT)
+    return P["ColBERTEncoder"](
+        serve.encoder_config(P, arch), P["HashTokenizer"](arch["vocab_size"]),
+        params=gen.make_weights(model.param_specs(arch), 7, "cpu"),
+        device="cpu")
+
+
+def test_an_encoder_key_reaches_the_port():
+    """``rope_interleaved``, a field of the port's ColBERTConfig that no
+    mapped key sets, reaches it from the file's "encoder" object and
+    changes what the encoder computes."""
+    _, _, arch = small("jina.trec-covid-open")
+    out = {}
+    for interleaved in (True, False):
+        enc = small_encoder(dict(arch,
+                                 encoder={"rope_interleaved": interleaved}))
+        assert enc.model.cfg.rope_interleaved is interleaved
+        out[interleaved] = enc.encode_queries(["bakok dabuk tugal"])
+    assert not torch.equal(out[True], out[False])
+
+
+def test_encoder_dtype_bfloat16_builds_a_bf16_encoder():
+    _, _, arch = small("jina.trec-covid-open")
+    enc = small_encoder(dict(arch, encoder_dtype="bfloat16"))
+    assert enc.model.cfg.dtype == torch.bfloat16
+    fp32 = small_encoder(arch)
+    a = enc.encode_queries(["bakok dabuk tugal"])
+    b = fp32.encode_queries(["bakok dabuk tugal"])
+    assert 0 < float((a.float() - b.float()).abs().max()) < 0.1
+
+
+@pytest.mark.parametrize("setting, named", [
+    ({"encoder": {"rope_interleave": True}}, "encoder.rope_interleave"),
+    ({"encoder": {"num_heads": 8}}, "encoder.num_heads"),
+    ({"encoder": {"dtype": "float32"}}, "encoder.dtype"),
+    ({"encoder_dtype": "float16"}, "encoder_dtype")],
+    ids=["unknown-key", "repeats-a-mapped-key", "repeats-the-dtype",
+         "float16"])
+def test_a_bad_encoder_setting_stops_set_up(setting, named):
+    """Before any timing, with the key's name."""
+    name = "colbertv2.msmarco-exact"
+    bench, cell, arch = small(name, n_docs=300)
+    arch.update(setting)
+    with pytest.raises(ValueError, match=named):
+        runner.setup(name, 3, "cpu", lambda c: 16, time.perf_counter(),
+                     bench, cell, arch)
+
+
+NEW_PY = """from harness.encoders import encode_queries, param_specs  # noqa: F401
+
+
+def encoder_flops(arch, batch, seq):
+    return 3.0e9 * batch * seq
+"""
+
+
+def test_a_new_configuration_is_new_files_alone(tmp_path, monkeypatch):
+    """A configuration this benchmark does not have (a bf16 encoder with
+    its own "encoder" key and its own FLOP count), added as a
+    configuration file, its .py and a cell file beside a copy of the
+    benchmark, runs through ``run_cell`` with no file that exists
+    edited: the port's encoder is set up from the file and
+    ``step_mfu_pct`` counts the encoder by the .py."""
+    bench_dir = tmp_path / "benchmark"
+    shutil.copytree(BENCH, bench_dir,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cfg = json.loads((bench_dir / "configs" / "jina-colbert-v2.json")
+                     .read_text())
+    cfg.update(name="tiny-new", encoder_dtype="bfloat16",
+               encoder={"rope_interleaved": True})
+    (bench_dir / "configs" / "tiny-new.json").write_text(json.dumps(cfg))
+    (bench_dir / "configs" / "tiny-new.py").write_text(NEW_PY)
+    bench["configs"].append(dict(bench["configs"][1], name="tiny-new",
+                                 file="benchmark/configs/tiny-new.json"))
+    cell = json.loads(spec.cell_path("jina.trec-covid-open",
+                                     bench_dir).read_text())
+    cell.update(name="tiny-new.open", config="tiny-new")
+    spec.cell_path("tiny-new.open", bench_dir).write_text(json.dumps(cell))
+    bench["workloads"].append(dict(bench["workloads"][1],
+                                   name="tiny-new.open", config="tiny-new"))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+    monkeypatch.setattr(spec, "ROOT", tmp_path)
+    loaded = spec.load_benchmark(tmp_path)
+    cell = spec.load_cell(loaded, "tiny-new.open", bench_dir)
+    arch = spec.load_config(loaded, "tiny-new", tmp_path)
+    _, small_cell, small_arch = small("jina.trec-covid-open")
+    arch.update({k: small_arch[k] for k in (
+        "num_hidden_layers", "hidden_size", "num_attention_heads",
+        "intermediate_size", "vocab_size")})
+    cell["corpus"], cell["load"] = small_cell["corpus"], small_cell["load"]
+    cell["check"]["sample"] = 8
+    seen = {}
+    out = runner.run_cell("tiny-new.open", 11, 1.0, False, "cpu",
+                          bench=loaded, cell=cell, arch=arch,
+                          fault=lambda s: seen.update(
+                              cfg=s.encoder.model.cfg))
+    assert (seen["cfg"].dtype, seen["cfg"].rope_interleaved) == (
+        torch.bfloat16, True)
+    assert out["attempted"] > 0 and out["failed"] == 0
+    assert 0 < out["check"]["score_err"]["value"] < 1
+    ctx = dict(out["ctx"], peaks=yardstick.PEAKS["H100"])
+    assert ctx["model"].encoder_flops(arch, 2, 32) == 3.0e9 * 64
+    flops = sum(yardstick.call_flops(arch, ctx["route"], ctx["index"], n, 32)
+                - yardstick.encoder_flops(arch, n, 32) + 3.0e9 * n * 32
+                for n in [c["n_real"] for c in ctx["calls"]])
+    secs = sum(c["t1"] - c["t0"] for c in ctx["calls"])
+    assert readers.step_mfu_pct(ctx) == pytest.approx(
+        100.0 * flops / secs / ctx["peaks"]["bf16_flops"], rel=1e-12)
+
+
+def test_cell_1_tail_per_layer_is_the_end_to_end_p95():
+    """``query_p95_ms.msmarco-open`` reads, from the measured window,
+    the number ``query_p95_ms`` would be in that cell, and the cell's
+    end-to-end line no longer carries ``query_p95_ms``."""
+    name = "colbertv2.msmarco-open"
+    bench, cell, arch = small(name, n_docs=600)
+    assert "query_p95_ms" not in {
+        m["name"] for m in spec.end_to_end_for(BENCHMARK, name)}
+    assert "query_p95_ms.msmarco-open" in {
+        m["name"] for m in spec.per_layer_for(BENCHMARK, name)}
+    out = runner.run_cell(name, 7, 0.5, False, "cpu", bench=bench,
+                          cell=cell, arch=arch)
+    read = spec.load_reader("query_p95_ms.msmarco-open")(out["ctx"])
+    assert read == out["e2e"]["query_p95_ms"] > 0

@@ -67,17 +67,18 @@ def spans_recorded() -> Iterator[Dict]:
     (``traced``), and ``run_cell``'s result is kept (``out``)."""
     serve.port()        # the program on the path
     from hybrid_rag_colbertv2_tpu_torch.utils import profiling
-    state: Dict = dict(windows=[], traced=[], out=None)
+    state: Dict = dict(windows=[], recorders=[], traced=[], out=None)
     saved = [(serve, "open_loop"), (serve, "closed_loop"),
              (serve.Recorder, "answered"), (devtrace, "reduce_trace"),
              (runner, "run_cell")]
     orig = [getattr(o, n) for o, n in saved]
 
     def with_spans(fn):
-        def wrapped(*a, **kw):
-            with profiling.record_spans() as rec:
-                out = fn(*a, **kw)
-            state["windows"].append(rec)
+        def wrapped(system, texts, load, rec, **kw):
+            with profiling.record_spans() as spans:
+                out = fn(system, texts, load, rec, **kw)
+            state["windows"].append(spans)
+            state["recorders"].append(rec)
             return out
         return wrapped
 
@@ -111,10 +112,12 @@ def spans_recorded() -> Iterator[Dict]:
 
 
 def readings(state: Dict) -> Dict:
-    """What the spans of ``spans_recorded``'s first window (the measured
-    one) and of its last traced window say."""
-    spans = state["windows"][0].spans
+    """What the spans of ``spans_recorded``'s measured window (the one
+    that filled the run's recorder; set-up's warm load comes first) and
+    of its last traced window say."""
     rec = state["out"]["ctx"]["rec"]
+    spans = state["windows"][[r is rec for r in
+                              state["recorders"]].index(True)].spans
     line = dict(
         batcher_queue_ms=hs.batcher_queue_ms(spans),
         batch_fill_pct=hs.batch_fill_pct(spans),
